@@ -29,3 +29,8 @@ except ImportError:
 
 requires_hypothesis = pytest.mark.skipif(
     not HAVE_HYPOTHESIS, reason="hypothesis not installed")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without them)")

@@ -1,0 +1,129 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA device and nvcc; elsewhere they skip.  The file
+imports no JAX, so it also runs on the GPU machine, which has none:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import SimConfig, build_synapses, simulate
+from repro_torch.core.connectome import synthetic_flywire
+from repro_torch.core.neuron import FLYWIRE_LIF as P
+from repro_torch.exp import ProbeSpec, build_scenario
+from repro_torch.kernels.spike_prop import kernel as K
+from repro_torch.kernels.spike_prop import ops
+
+ACTIVITY = {"silent": 0.0, "sparse": 0.02, "dense": 0.3, "all": 1.0}
+CHANNELS = [(g, v, f) for g in (0, 1) for v in (0, 1) for f in (0, 1)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import build
+    try:
+        build.nvcc_path()
+    except RuntimeError:
+        pytest.skip("needs nvcc to build the CUDA kernels")
+    return torch.device("cuda")
+
+
+def _rows(n_tb, fx, rng, dev):
+    shape = (n_tb, 128)
+    refrac = rng.integers(-1, P.ref_steps + 1, shape).astype(np.int32)
+    if fx:
+        v = rng.integers(-2 * P.fx_v_th, 2 * P.fx_v_th, shape).astype(np.int32)
+        g = rng.integers(-(1 << 24), 1 << 24, shape).astype(np.int32)
+        vin = rng.integers(-40, 41, shape).astype(np.int32)
+    else:
+        v = rng.normal(3.0, 4.0, shape).astype(np.float32)
+        g = rng.normal(0.0, 2.0, shape).astype(np.float32)
+        vin = rng.normal(0.0, 5.0, shape).astype(np.float32)
+    gstim = (rng.integers(-3, 4, shape) * 60).astype(np.float32)
+    force = (rng.random(shape) < 0.05).astype(np.int32)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return [t(v), t(g), t(refrac)], [t(gstim), t(vin), t(force)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activity", list(ACTIVITY))
+@pytest.mark.parametrize("quantized", [False, True])
+def test_kernels_match_plain(cuda, activity, quantized):
+    """Tolerance 0: both kernels are bitwise equal to their plain
+    versions, in both precisions, for every subset of the channels."""
+    c = synthetic_flywire(1800, seed=2)
+    w = np.clip(c.in_weights, -256, 255) if quantized else None
+    bs = ops.build_blocked(c, w, cuda)
+    rng = np.random.default_rng(0)
+    s = torch.from_numpy(rng.random(c.n) < ACTIVITY[activity]).to(cuda)
+    spk, nspk = ops.pad_spike_blocks(s, bs.n, bs.n_sb)
+    a = K.spike_deliver_tiles(bs.blk_id, bs.weights, spk, nspk)
+    b = K.spike_deliver_plain(bs.blk_id, bs.weights, spk, nspk)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    dense = torch.from_numpy(c.dense()).to(cuda) if not quantized else None
+    if dense is not None:
+        assert torch.equal(a.reshape(-1)[:c.n], dense @ s.to(torch.float32))
+    for fx in (False, True):
+        state, stim = _rows(bs.n_tb, fx, rng, cuda)
+        for channels in CHANNELS:
+            ch = [x if on else None for x, on in zip(stim, channels)]
+            kw = dict(params=P, fixed_point=fx)
+            a = K.fused_deliver_lif(bs.blk_id, bs.weights, spk, *state, *ch,
+                                    **kw)
+            b = K.fused_deliver_lif_plain(bs.blk_id, bs.weights, spk, *state,
+                                          *ch, **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), (fx,
+                                                                  channels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fx", [False, True], ids=["f32", "q19_12"])
+def test_simulate_engines_agree_on_the_card(cuda, fx):
+    """blocked and blocked_fused through their kernels, bitwise equal to
+    csr on the card and to the CPU run, with every launch counted."""
+    c = synthetic_flywire(n=1500, target_synapses=45_000, seed=3)
+    kw = dict(fixed_point=True, quantize_bits=9, poisson_to_v=False) \
+        if fx else {}
+    probes = ProbeSpec(raster=True, pop_rate=True)
+    out = {}
+    for engine in ("csr", "blocked", "blocked_fused"):
+        cfg = SimConfig(engine=engine, **kw)
+        stim = build_scenario("sugar_feeding", c, cfg)
+        K.reset_launches()
+        out[engine] = simulate(c, cfg, 300, seed=7, stimulus=stim,
+                               probes=probes)
+        torch.cuda.synchronize()
+        if engine == "blocked":
+            assert K.LAUNCHES == {"spike_deliver": 300,
+                                  "fused_deliver_lif": 0}
+        if engine == "blocked_fused":
+            assert K.LAUNCHES == {"spike_deliver": 0,
+                                  "fused_deliver_lif": 300}
+    cpu = simulate(c, SimConfig(engine="csr", **kw), 300, seed=7,
+                   stimulus=build_scenario("sugar_feeding", c, SimConfig(
+                       **kw)), probes=probes, device="cpu")
+    assert int(cpu.counts.sum()) > 0
+    for r in out.values():
+        assert torch.equal(r.counts.cpu(), cpu.counts)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(r.state,
+                                                            cpu.state))
+        assert torch.equal(r.raster.cpu(), cpu.raster)
+        assert torch.equal(r.records["pop_rate_hz"].cpu(),
+                           cpu.records["pop_rate_hz"])
+
+
+@pytest.mark.cuda
+def test_build_synapses_on_the_card(cuda):
+    c = synthetic_flywire(700, seed=1)
+    syn = build_synapses(c, SimConfig(engine="blocked"))
+    cpu = build_synapses(c, SimConfig(engine="blocked"), "cpu")
+    assert syn.weights.device.type == "cuda"
+    assert torch.equal(syn.weights.cpu(), cpu.weights)
+    assert torch.equal(syn.blk_id.cpu(), cpu.blk_id)
