@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the connectome simulator in :mod:`repro`.
+"""PyTorch/CUDA port of :mod:`repro`: the connectome simulator and the
+dense LM side-stack with its serving engine.
 
 Module paths mirror the JAX package's (``repro_torch/core/engine.py`` is
 the counterpart of ``repro/core/engine.py``).  This package imports

@@ -4,8 +4,9 @@ Each function takes an object of :mod:`repro` whose array fields can be
 read with ``np.asarray`` (JAX arrays or numpy arrays) and returns the
 port's counterpart on ``device`` (default: the CUDA device; it raises
 without one, as ``simulate`` does).  This module imports neither JAX nor
-the JAX package: it reads attributes only.  With it a test can run the
-reference for k steps, carry the state over, and run both for k more.
+the JAX package: it reads attributes, dict keys and tuple items only.
+With it a test can run the reference for k steps, carry the state over,
+and run both for k more, or run an LM on the reference's weights.
 """
 
 from __future__ import annotations
@@ -84,5 +85,52 @@ def carry_from_jax(carry, device=None) -> SimCarry:
         stats=_tree(dict(carry.stats), device))
 
 
+def _layer(tree, r=None):
+    """A block's parameter dict; ``r`` picks one layer of a tree stacked
+    on a leading layer axis."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, r) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return a if r is None else a[r]
+
+
+def lm_params_from_jax(params, cfg, device=None):
+    """The reference's LM parameter pytree (from ``repro.models.
+    init_params``; JAX or numpy leaves) as the port's
+    :class:`repro_torch.models.LMParams` for the dense config ``cfg``.
+
+    The reference's ``stack`` holds ``"scan"``, one tree per position of
+    ``cfg.block_pattern`` stacked over the pattern's repeats, and
+    ``"tail"``, the unrolled remainder; layer ``r * len(pattern) + j`` is
+    repeat ``r`` of position ``j``, then the tail follows.  They become
+    one ``nn.ModuleList`` of blocks in that order."""
+    from torch import nn
+
+    from repro_torch.models import model as lm
+    from repro_torch.models.transformer import Block, layer_kinds
+    lm.check_supported(cfg)
+    device = resolve_device(device)
+    pat = cfg.block_pattern
+    n_rep = cfg.n_layers // len(pat)
+    trees = [_layer(params["stack"]["scan"][j], r) for r in range(n_rep)
+             for j in range(len(pat))]
+    trees += [_layer(t) for t in params["stack"]["tail"]]
+    kinds = layer_kinds(cfg)
+    if len(trees) != len(kinds):
+        raise ValueError(f"{len(trees)} layers in the tree, {len(kinds)} in "
+                         f"{cfg.name}")
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return {k: tensors(v) for k, v in tree.items()}
+        return _t(tree, device)
+    stack = nn.ModuleList(Block(kind, tensors(t))
+                          for kind, t in zip(kinds, trees))
+    return lm.LMParams(
+        _t(params["embed"], device),
+        None if cfg.tie_embeddings else _t(params["lm_head"], device),
+        tensors(_layer(params["final_norm"])), stack)
+
+
 __all__ = ["blocked_from_jax", "carry_from_jax", "connectome_from_jax",
-           "csr_from_jax"]
+           "csr_from_jax", "lm_params_from_jax"]

@@ -6,7 +6,7 @@ neurons.  The CUDA kernel in :mod:`repro_torch.kernels.spike_prop` applies
 the same math per thread (``csrc/lif.cuh``) and is held against these
 functions.
 
-Bit-exactness with the JAX reference rests on three details:
+Bit-exactness with the JAX reference rests on four details:
 
 * XLA fuses ``g + g_in`` (where ``g_in = g_units * w_scale``) and
   ``v + alpha_m * ((v0 - v) + g)`` into fused multiply-adds.  PyTorch has
@@ -18,6 +18,13 @@ Bit-exactness with the JAX reference rests on three details:
   int64 and wrapped back explicitly (:func:`wrap_i32`), so no step relies
   on C++ signed overflow.
 * Right shifts are arithmetic, as in jnp.
+* XLA's CPU code runs with flush-to-zero and denormals-are-zero: a float32
+  operation reads a subnormal input as zero and returns zero (of the
+  result's sign) for a subnormal result, while a select passes a
+  subnormal through.  The float path does the same explicitly with
+  :func:`ftz` after and before each operation; without it a quiet
+  neuron's ``g`` differs once it decays below 1.18e-38 (about 4,300
+  steps at dt = 0.1 ms).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from repro_torch import random as prng
 
 FX_FRAC_BITS = 12  # Q19.12 fixed point, state in units of w_scale
+FLT_MIN = float(np.finfo(np.float32).tiny)   # smallest normal float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,11 +137,19 @@ def f32s(x: float) -> float:
     return float(np.float32(x))
 
 
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with float32 subnormals replaced by zero of the same sign (what
+    XLA's CPU code makes of a subnormal result, and reads a subnormal input
+    as); normals, infinities and NaN pass unchanged."""
+    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
+
+
 def fma_f32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor
             ) -> torch.Tensor:
     """Correctly rounded float32 ``a * b + c`` (one rounding, as a hardware
-    FMA), for normal float32 results; ``b`` may be a float32-exact Python
-    float.
+    FMA) under flush-to-zero: subnormal ``a``, ``b`` or ``c`` are read as
+    zero and a subnormal result is flushed (:func:`ftz`); ``b`` may be a
+    float32-exact Python float.
 
     ``a * b`` is exact in float64.  The float64 sum ``s`` and its exact
     error ``e`` (TwoSum) bracket the true value; rounding ``s`` to float32
@@ -141,8 +157,9 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor
     while ``e`` is not zero, and then ``s`` is moved one float64 step
     towards the true value first.
     """
-    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else b)
-    cd = c.double()
+    p = ftz(a).double() * (ftz(b).double() if isinstance(b, torch.Tensor)
+                           else b)
+    cd = ftz(c).double()
     s = p + cd
     bb = s - p
     e = (p - (s - bb)) + (cd - bb)
@@ -150,7 +167,7 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor
     tie = (low == (1 << 28)) & (e != 0)
     away = torch.full_like(s, float("inf")).copysign(e)
     s = torch.where(tie, torch.nextafter(s, away), s)
-    return s.float()
+    return ftz(s.float())
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -168,17 +185,23 @@ def lif_step(state: LIFState, g_units: torch.Tensor, params: LIFParams,
     this takes ``g_units`` in weight units and applies ``w_scale`` inside
     the fused multiply-add ``g + g_units * w_scale`` that XLA forms.
 
+    Every float32 operation flushes its inputs and its result (:func:`ftz`),
+    as XLA's CPU code does; a refractory neuron's ``v`` and ``g`` pass
+    through unchanged, subnormal or not, as through the reference's
+    selects.
+
     Returns ``(new_state, spikes [n] bool)``.
     """
     p = params
-    v, g = state.v, state.g
     active = state.refrac <= 0
-    g = torch.where(active, fma_f32(g_units, f32s(p.w_scale), g), g)
+    g = fma_f32(g_units, f32s(p.w_scale), state.g)
+    v = ftz(state.v)
     if v_in is not None:
-        v = torch.where(active, v + v_in, v)
-    v = torch.where(active, fma_f32((f32s(p.v0) - v) + g, f32s(p.alpha_m), v),
-                    v)
-    g = torch.where(active, g * f32s(p.decay_g), g)
+        v = ftz(v + ftz(v_in))
+    v = fma_f32(ftz(ftz(f32s(p.v0) - v) + g), f32s(p.alpha_m), v)
+    g = ftz(g * f32s(p.decay_g))
+    v = torch.where(active, v, state.v)
+    g = torch.where(active, g, state.g)
     spikes = active & (v > f32s(p.v_th))
     if force_spike is not None:
         spikes = spikes | (active & force_spike)
@@ -244,6 +267,7 @@ def mv_to_fx(x: torch.Tensor, params: LIFParams) -> torch.Tensor:
     return torch.round(x * float(scale)).to(torch.int32)
 
 
-__all__ = ["FLYWIRE_LIF", "FLYWIRE_LIF_1MS", "FX_FRAC_BITS", "LIFParams",
-           "LIFState", "f32", "f32s", "fma_f32", "fx_to_mv", "init_state", "lif_step",
-           "lif_step_fx", "mv_to_fx", "poisson_drive", "wrap_i32"]
+__all__ = ["FLT_MIN", "FLYWIRE_LIF", "FLYWIRE_LIF_1MS", "FX_FRAC_BITS",
+           "LIFParams", "LIFState", "f32", "f32s", "fma_f32", "ftz", "fx_to_mv",
+           "init_state", "lif_step", "lif_step_fx", "mv_to_fx",
+           "poisson_drive", "wrap_i32"]

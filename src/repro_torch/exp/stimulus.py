@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as prng
-from repro_torch.core.neuron import (LIFParams, f32, f32s, lif_step,
+from repro_torch.core.neuron import (LIFParams, f32, f32s, ftz, lif_step,
                                      lif_step_fx, poisson_drive)
 
 
@@ -50,11 +50,12 @@ def n_split(stim) -> int:
 def apply_drive(lif, g_units: torch.Tensor, drive: StimDrive, p: LIFParams,
                 fixed_point: bool):
     """Apply a :class:`StimDrive` to the delivered synaptic input and
-    integrate one LIF step -> ``(new_lif, spikes)``: the g add before the
-    fixed-point rounding, and the Q19.12 conversion of ``v_mv`` by an IEEE
-    division, as the reference does them."""
+    integrate one LIF step -> ``(new_lif, spikes)``: the g add (flushed to
+    zero as XLA's CPU code flushes it) before the fixed-point rounding, and
+    the Q19.12 conversion of ``v_mv`` by an IEEE division, as the reference
+    does them."""
     if drive.g_units is not None:
-        g_units = g_units + drive.g_units
+        g_units = ftz(ftz(g_units) + ftz(drive.g_units))
     if fixed_point:
         g_in = torch.round(g_units).to(torch.int32)
         v_fx = None

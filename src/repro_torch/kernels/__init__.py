@@ -1,2 +1,4 @@
 """Hand-written CUDA kernels of the port, each with a plain PyTorch version
-beside it (see :mod:`repro_torch.kernels.spike_prop`)."""
+beside it: blocked-ELL delivery and fused delivery -> LIF
+(:mod:`.spike_prop`), the LIF step (:mod:`.lif`) and flash attention
+(:mod:`.flash_attention`); :mod:`.build` compiles and loads them."""

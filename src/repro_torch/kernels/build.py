@@ -4,10 +4,16 @@ The JAX package has no counterpart: Pallas kernels are compiled by XLA.
 Each ``csrc/*.cu`` source of a kernel package is compiled on first use into
 its own shared library with a plain C interface, under ``build/repro_torch/``
 in the checkout (git ignores ``build/``), and loaded with :mod:`ctypes`.
-A library's file name carries a digest of its sources and flags, so an
-edited source is rebuilt and a stale library is never loaded.  All the
-sources that :func:`build` is given are compiled by parallel nvcc
-processes.
+Headers shared between kernel packages (``lif.cuh``) live in
+``kernels/include/``, which every compile gets as ``-I``.  A library's
+file name carries a digest of its flags, of the sources in its own
+``csrc/`` and of the shared headers, so an edited source or header is
+rebuilt and a stale library is never loaded.  All the sources that
+:func:`build` is given are compiled by parallel nvcc processes.
+
+:func:`function` returns a kernel's C launch function with its argument
+types set; :func:`stream` and :func:`raise_on` are the launch-side glue
+every wrapper uses.
 
 Nothing here runs at import time; the CPU tests import every module of the
 port on a machine with no nvcc.
@@ -24,11 +30,14 @@ import time
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+INCLUDE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "include")
 BUILD_DIR = os.path.normpath(os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "..", "..", "build",
     "repro_torch"))
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: dict[tuple[str, str], object] = {}
 
 
 def nvcc_path() -> str:
@@ -42,12 +51,12 @@ def nvcc_path() -> str:
 
 
 def _library_path(source: str) -> str:
-    csrc = os.path.dirname(source)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(csrc)):
-        if name.endswith((".cu", ".cuh")):
-            with open(os.path.join(csrc, name), "rb") as f:
-                h.update(name.encode() + f.read())
+    for d in (os.path.dirname(source), INCLUDE_DIR):
+        for name in sorted(os.listdir(d)):
+            if name.endswith((".cu", ".cuh")):
+                with open(os.path.join(d, name), "rb") as f:
+                    h.update(name.encode() + f.read())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
@@ -66,7 +75,7 @@ def build(sources: list[str]) -> dict[str, float]:
     t0 = time.perf_counter()
     for src, lib in todo:
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", INCLUDE_DIR, "-o", tmp, src]
         procs.append((src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     seconds, errors = {}, []
@@ -91,4 +100,45 @@ def load(source: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "nvcc_path"]
+def function(source: str, name: str, argtypes: list):
+    """The C function ``name`` of ``source``'s library (built on first
+    use), returning ``int`` (a ``cudaError_t``) and taking ``argtypes``."""
+    fn = _FUNCTIONS.get((source, name))
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _FUNCTIONS[(source, name)] = fn
+    return fn
+
+
+def stream(dev) -> int:
+    """The current stream of CUDA device ``dev``; the kernels launch on the
+    current device, so the tensors must be there."""
+    import torch
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {dev}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def raise_on(rc: int, name: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def check_tensor(name: str, x, dtype, shape, device) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's pointer arithmetic assumes."""
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, want {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+__all__ = ["BUILD_DIR", "INCLUDE_DIR", "NVCC_FLAGS", "build", "check_tensor",
+           "function", "load", "nvcc_path", "raise_on", "stream"]

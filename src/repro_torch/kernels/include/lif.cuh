@@ -8,19 +8,28 @@
 //     The two sites that XLA contracts into fused multiply-adds,
 //     g + g_units * w_scale and v + alpha_m * ((v0 - v) + g), are
 //     __fmaf_rn; nothing else is fused (the sources are also built with
-//     -fmad=false).
+//     -fmad=false).  XLA's CPU code flushes float32 subnormals, in and
+//     out of every operation; ftz() does the same explicitly around each
+//     operation (the build keeps -ftz=false, so nothing else is flushed),
+//     and a refractory neuron's v and g pass through untouched.
 //   * Q19.12: jnp wraps on int32 overflow and shifts right arithmetically.
 //     Adds, subtracts, multiplies and the << 12 go through uint32 so that
 //     nothing relies on signed overflow; >> stays on int32 (arithmetic).
 //
-// The fused delivery->LIF kernel uses it; the standalone LIF kernels of
-// the reference (repro/kernels/lif/kernel.py) are to reuse it when they
-// are ported.
+// The fused delivery->LIF kernel (kernels/spike_prop) and the standalone
+// LIF kernels (kernels/lif) include it from this shared directory, whose
+// files kernels/build.py hashes into every library's name.
 #pragma once
 
+#include <cfloat>
 #include <cstdint>
 
 namespace lif {
+
+// Zero of x's sign for a subnormal x (flush-to-zero / denormals-are-zero).
+__device__ __forceinline__ float ftz(float x) {
+  return fabsf(x) < FLT_MIN ? copysignf(0.0f, x) : x;
+}
 
 struct F32Params {
   float w_scale, alpha_m, v0, decay_g, v_th, v_r;
@@ -54,10 +63,12 @@ __device__ __forceinline__ bool step_f32(float& v, float& g, int32_t& refrac,
                                          const F32Params& p) {
   const bool active = refrac <= 0;
   if (active) {
-    g = __fmaf_rn(g_units, p.w_scale, g);
-    if (has_vin) v = __fadd_rn(v, v_in);
-    v = __fmaf_rn(p.alpha_m, __fadd_rn(__fsub_rn(p.v0, v), g), v);
-    g = __fmul_rn(g, p.decay_g);
+    g = ftz(__fmaf_rn(ftz(g_units), p.w_scale, ftz(g)));
+    v = ftz(v);
+    if (has_vin) v = ftz(__fadd_rn(v, ftz(v_in)));
+    v = ftz(__fmaf_rn(p.alpha_m, ftz(__fadd_rn(ftz(__fsub_rn(p.v0, v)), g)),
+                      v));
+    g = ftz(__fmul_rn(g, p.decay_g));
   }
   const bool spike = active && (v > p.v_th || force);
   if (spike) {

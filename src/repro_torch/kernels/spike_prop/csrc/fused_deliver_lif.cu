@@ -69,7 +69,8 @@ __global__ void __launch_bounds__(tiles::BLK)
   }
 
   const size_t r = static_cast<size_t>(tb) * BLK + t;
-  const float g_units = gstim ? __fadd_rn(acc, gstim[r]) : acc;
+  const float g_units =
+      gstim ? lif::ftz(__fadd_rn(acc, lif::ftz(gstim[r]))) : acc;
   const bool f = force ? force[r] != 0 : false;
   int32_t refrac = refrac_in[r];
   bool spike;

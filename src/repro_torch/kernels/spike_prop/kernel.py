@@ -30,7 +30,10 @@ import os
 
 import torch
 
-from repro_torch.core.neuron import LIFParams, LIFState, lif_step, lif_step_fx
+from repro_torch.core.neuron import (LIFParams, LIFState, ftz, lif_step,
+                                     lif_step_fx)
+from repro_torch.kernels import build
+from repro_torch.kernels.build import check_tensor as _check
 
 TGT_BLK = 128
 SRC_BLK = 128
@@ -53,29 +56,11 @@ _ARGTYPES = {
     "spike_deliver": [_P] * 5 + [_I, _I, _P],
     "fused_deliver_lif": [_P] * 13 + [_I] * 3 + [_F] * 6 + [_I] * 6 + [_P],
 }
-_FNS: dict = {}
 
 
 def _launcher(name: str):
     """The C launch function of kernel ``name``, built on first use."""
-    fn = _FNS.get(name)
-    if fn is None:
-        from repro_torch.kernels import build
-        fn = getattr(build.load(SOURCES[name]), f"{name}_launch")
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[name]
-        _FNS[name] = fn
-    return fn
-
-
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, want {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return build.function(SOURCES[name], f"{name}_launch", _ARGTYPES[name])
 
 
 def _check_store(blk_id, weights, spk_blocks):
@@ -88,20 +73,6 @@ def _check_store(blk_id, weights, spk_blocks):
     _check("spk_blocks", spk_blocks, torch.float32,
            (spk_blocks.shape[0], SRC_BLK), dev)
     return n_tb, E, dev
-
-
-def _stream(dev: torch.device) -> int:
-    """The current stream of ``dev``; the kernel launches on the current
-    device, so the tensors must be there."""
-    if dev.index is not None and dev.index != torch.cuda.current_device():
-        raise ValueError(f"tensors on {dev}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 # --------------------------------------------------------------------------
@@ -139,7 +110,7 @@ def fused_deliver_lif_plain(blk_id, weights, spk_blocks, v, g, refrac,
     live = (spk_blocks != 0).any(dim=1)
     g_units = _gated_tile_sums(blk_id, weights, spk_blocks, live)
     if gstim is not None:
-        g_units = g_units + gstim
+        g_units = ftz(ftz(g_units) + ftz(gstim))
     lif = LIFState(v=v.reshape(-1), g=g.reshape(-1), refrac=refrac.reshape(-1))
     vin = None if vin is None else vin.reshape(-1)
     force = None if force is None else force.reshape(-1) != 0
@@ -176,8 +147,8 @@ def spike_deliver_tiles(blk_id, weights, spk_blocks, nspk):
     out = torch.empty((n_tb, TGT_BLK), dtype=torch.float32, device=dev)
     rc = _launcher("spike_deliver")(
         blk_id.data_ptr(), weights.data_ptr(), spk_blocks.data_ptr(),
-        nspk.data_ptr(), out.data_ptr(), n_tb, E, _stream(dev))
-    _raise_on(rc, "spike_deliver")
+        nspk.data_ptr(), out.data_ptr(), n_tb, E, build.stream(dev))
+    build.raise_on(rc, "spike_deliver")
     LAUNCHES["spike_deliver"] += 1
     return out
 
@@ -220,8 +191,8 @@ def fused_deliver_lif(blk_id, weights, spk_blocks, v, g, refrac, gstim=None,
         ptr(force), v_out.data_ptr(), g_out.data_ptr(), refrac_out.data_ptr(),
         spk_out.data_ptr(), n_tb, E, int(fixed_point), p.w_scale, p.alpha_m,
         p.v0, p.decay_g, p.v_th, p.v_r, p.fx_v0, p.fx_alpha_m16,
-        p.fx_gdecay16, p.fx_v_th, p.fx_v_r, p.ref_steps, _stream(dev))
-    _raise_on(rc, "fused_deliver_lif")
+        p.fx_gdecay16, p.fx_v_th, p.fx_v_r, p.ref_steps, build.stream(dev))
+    build.raise_on(rc, "fused_deliver_lif")
     LAUNCHES["fused_deliver_lif"] += 1
     return v_out, g_out, refrac_out, spk_out
 

@@ -12,8 +12,13 @@ import torch
 
 from repro_torch.core import SimConfig, build_synapses, simulate
 from repro_torch.core.connectome import synthetic_flywire
+from repro_torch.core.neuron import FLT_MIN, LIFState
 from repro_torch.core.neuron import FLYWIRE_LIF as P
 from repro_torch.exp import ProbeSpec, build_scenario
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.lif import kernel as LK
+from repro_torch.kernels.lif import lif_update
 from repro_torch.kernels.spike_prop import kernel as K
 from repro_torch.kernels.spike_prop import ops
 
@@ -127,3 +132,112 @@ def test_build_synapses_on_the_card(cuda):
     assert syn.weights.device.type == "cuda"
     assert torch.equal(syn.weights.cpu(), cpu.weights)
     assert torch.equal(syn.blk_id.cpu(), cpu.blk_id)
+
+
+def _subnormal_f32(rng, shape):
+    """Float32 values of which about a third are subnormal, a third tiny
+    normals and a third ordinary."""
+    x = rng.normal(0.0, 3.0, shape)
+    pick = rng.integers(0, 3, shape)
+    x = np.where(pick == 0, rng.uniform(-1, 1, shape) * FLT_MIN, x)
+    x = np.where(pick == 1, rng.uniform(-4, 4, shape) * FLT_MIN, x)
+    return x.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fx", [False, True], ids=["f32", "q19_12"])
+def test_lif_kernels_match_plain_at_flywire_size(cuda, fx):
+    """Tolerance 0, n = 139,255, with float32 inputs that are or become
+    subnormal (the flush-to-zero of XLA's CPU code)."""
+    rng = np.random.default_rng(3)
+    n = 139_255
+    t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    refrac = t(rng.integers(-1, P.ref_steps + 1, n).astype(np.int32))
+    force = t((rng.random(n) < 0.05).astype(np.int32))
+    if fx:
+        v = t(rng.integers(-2 * P.fx_v_th, 2 * P.fx_v_th, n).astype(np.int32))
+        g = t(rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32))
+        g_in = t(rng.integers(-(1 << 19), 1 << 19, n).astype(np.int32))
+        v_in = t(rng.integers(-40, 41, n).astype(np.int32))
+        fn, plain = LK.lif_update_fx32, LK.lif_update_fx_ref
+    else:
+        v, g, g_in, v_in = (t(_subnormal_f32(rng, n)) for _ in range(4))
+        fn, plain = LK.lif_update_f32, LK.lif_update_ref
+    args = (v, g, refrac, g_in, v_in, force)
+    a, b = fn(*args, params=P), plain(*args, params=P)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    if not fx:      # flushes happened: zero g out of nonzero g, no spike
+        assert int(((a[1] == 0) & (a[3] == 0) & (g != 0)).sum()) > 500
+
+
+@pytest.mark.cuda
+def test_lif_entry_point_trajectory_on_the_card(cuda):
+    """200 quiet steps from subnormal-bound state through the entry point,
+    bitwise equal to the CPU run, every launch counted."""
+    rng = np.random.default_rng(4)
+    n = 5000
+    st = LIFState(v=torch.from_numpy(rng.normal(0, 5, n).astype(np.float32)),
+                  g=torch.from_numpy((rng.exponential(3, n) * 1e-37
+                                      ).astype(np.float32)),
+                  refrac=torch.zeros(n, dtype=torch.int32))
+    dev = LIFState(*(x.to(cuda) for x in st))
+    g_in = torch.zeros(n)
+    LK.reset_launches()
+    for _ in range(200):
+        st, s_cpu = lif_update(st, g_in, P)
+        dev, s_dev = lif_update(dev, g_in.to(cuda), P)
+    torch.cuda.synchronize()
+    assert LK.LAUNCHES == {"lif_update_f32": 200, "lif_update_fx32": 0}
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(dev, st))
+    assert torch.equal(s_dev.cpu(), s_cpu)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_flushes_like_plain(cuda):
+    """The fused delivery->LIF kernel on subnormal state and stimulus,
+    bitwise against its plain version."""
+    c = synthetic_flywire(1800, seed=2)
+    bs = ops.build_blocked(c, None, cuda)
+    rng = np.random.default_rng(6)
+    s = torch.from_numpy(rng.random(c.n) < 0.02).to(cuda)
+    spk, _ = ops.pad_spike_blocks(s, bs.n, bs.n_sb)
+    shape = (bs.n_tb, 128)
+    t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    v, g, gstim, vin = (t(_subnormal_f32(rng, shape)) for _ in range(4))
+    refrac = t(rng.integers(-1, 3, shape).astype(np.int32))
+    kw = dict(params=P, fixed_point=False)
+    a = K.fused_deliver_lif(bs.blk_id, bs.weights, spk, v, g, refrac, gstim,
+                            vin, None, **kw)
+    b = K.fused_deliver_lif_plain(bs.blk_id, bs.weights, spk, v, g, refrac,
+                                  gstim, vin, None, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,D,causal,window", [
+    (1, 2, 2, 256, 64, True, None), (2, 4, 2, 128, 64, True, None),
+    (1, 2, 1, 200, 32, True, None), (1, 2, 2, 256, 64, False, None),
+    (1, 2, 2, 512, 64, True, 128), (1, 4, 4, 384, 128, True, 96),
+    (1, 4, 2, 160, 24, True, None), (1, 4, 2, 1500, 256, True, 1024),
+    (1, 40, 8, 1000, 128, True, None)])
+def test_flash_kernel_matches_attention_ref(cuda, B, H, Hkv, Sq, D, causal,
+                                            window):
+    """atol 2e-4 (the JAX package's tolerance for its kernel): the sweep of
+    tests/test_kernels.py, d_head 24 and 256 with a 1,024 window, and the
+    qwen2.5-14b shapes (40 heads over 8 kv heads of 128)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(Sq + D)
+    q = torch.randn(B, H, Sq, D, device=cuda, generator=g)
+    k = torch.randn(B, Hkv, Sq, D, device=cuda, generator=g)
+    v = torch.randn(B, Hkv, Sq, D, device=cuda, generator=g)
+    FK.reset_launches()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    plain = FK.flash_attention_plain(q, k, v, scale=D ** -0.5, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention"] == 1
+    assert float((out - ref).abs().max()) <= 2e-4
+    assert float((out - plain).abs().max()) <= 2e-4

@@ -214,3 +214,43 @@ def test_poisson_drive(mode):
             _same(r, p.numpy())
     finally:
         jax.config.update("jax_threefry_partitionable", old)
+
+
+def test_lif_step_flushes_subnormals_like_xla_5000_steps():
+    """XLA's CPU code flushes float32 subnormals to zero (inputs and
+    results); so does the port.  2,000 neurons with no input decay for
+    5,000 steps, far enough for most ``g`` (and some ``v``) to fall
+    below 1.18e-38: ``v``, ``g`` and ``refrac`` stay bitwise equal to
+    ``jax.jit(lif_step)`` at every step."""
+    rng = np.random.default_rng(0)
+    n, steps = 2000, 5000
+    st = ref.LIFState(v=rng.normal(0.0, 5.0, n).astype(np.float32),
+                      g=rng.exponential(3.0, n).astype(np.float32),
+                      refrac=np.zeros(n, np.int32))
+    zero = np.zeros(n, np.float32)
+
+    @jax.jit
+    def jref(st):
+        def body(_, s):
+            return ref.lif_step(s, jnp.asarray(zero) * RP.w_scale, RP)[0]
+        return jax.lax.fori_loop(0, steps, body, st)
+    want = jref(st)
+    ps, pz = _port_state(st), _t(zero)
+    for _ in range(steps):
+        ps, _ = port.lif_step(ps, pz, P)
+    for a, b in zip(want, ps):
+        _same(a, b.numpy())
+    # the case is not vacuous: without the flush these would be subnormal
+    assert (np.asarray(want.g) == 0).sum() > 1000
+
+
+def test_ftz_keeps_sign_and_normals():
+    x = np.array([1e-39, -1e-39, 1.1754944e-38, -1.1754944e-38, 0.0, -0.0,
+                  1.0, -np.inf, np.nan, 1e-45], np.float32)
+    got = port.ftz(_t(x)).numpy()
+    want = np.array([0.0, -0.0, 1.1754944e-38, -1.1754944e-38, 0.0, -0.0,
+                     1.0, -np.inf, np.nan, 0.0], np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    # XLA on the CPU: a subnormal product is a zero of the product's sign
+    assert np.asarray(jax.jit(lambda a: a * np.float32(0.5))(x[:2])).view(
+        np.int32).tolist() == want[:2].view(np.int32).tolist()

@@ -231,3 +231,22 @@ def test_flywire_config_mirrors_reference():
                 f == "params" and dataclasses.asdict(a.sim.params)
                 == dataclasses.asdict(b.sim.params)), f
         np.testing.assert_array_equal(a.sugar_neurons(3), b.sugar_neurons(3))
+
+
+def test_float32_run_long_enough_to_reach_subnormals():
+    """A float32 csr run of 5,000 steps at n = 300 under a 0.2 Hz
+    background: neurons kicked early decay for over 4,300 quiet steps, so
+    their ``g`` would be subnormal (11 of them on the port before it
+    flushed as XLA's CPU code does).  Counts and state stay bitwise equal
+    to the JAX package."""
+    rc = ref_conn.synthetic_flywire(n=300, target_synapses=3000, seed=11)
+    pc = convert.connectome_from_jax(rc)
+    rcfg, pcfg = ref_engine.SimConfig(engine="csr"), SimConfig(engine="csr")
+    r = ref_engine.simulate(rc, rcfg, 5000, seed=4, stimulus=ref_scenario(
+        "activity_sweep", rc, rcfg, background_hz=0.2))
+    p = simulate(pc, pcfg, 5000, seed=4, device="cpu",
+                 stimulus=build_scenario("activity_sweep", pc, pcfg,
+                                         background_hz=0.2))
+    want, got = _result(r), _result(p)
+    assert want["counts"].sum() > 0
+    _assert_bitwise(want, got)
