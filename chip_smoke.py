@@ -41,6 +41,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 without tensor cores
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 N_FULL = 139_255
 SYN_FULL = 15_000_000
 N_KERNEL_CHECK = 20_000
@@ -221,6 +222,17 @@ def phase_build():
     print(f"nvcc: {json.dumps({k: round(v, 3) for k, v in secs.items()})} "
           f"({time.perf_counter() - t0:.3f} s wall, flags "
           f"{' '.join(build.NVCC_FLAGS)})", flush=True)
+    # the flash kernel's products must run on the tensor cores in TF32
+    from repro_torch.kernels.flash_attention import kernel as FK
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", build.library_path(FK.SOURCE)], check=True,
+        capture_output=True, text=True, timeout=300).stdout
+    hmma = [ln.strip() for ln in sass.splitlines()
+            if "HMMA" in ln and "TF32" in ln]
+    check(bool(hmma), "no TF32 HMMA instruction in the flash kernel's SASS")
+    print(f"flash kernel SASS: {len(hmma)} TF32 HMMA instructions, e.g. "
+          f"{hmma[0]}", flush=True)
 
 
 def with_subnormals(rng, x):
@@ -267,12 +279,29 @@ def stim_rows(rng, n_tb, fixed_point, device, params):
     return gstim, vin, force
 
 
+def missing_tile_store(dev):
+    """A small store in which target block 1 (of 3) has no tile at all and
+    block 0 has none from source block 2: a live source block that some
+    target blocks hold no tile for."""
+    import numpy as np
+    from repro_torch.kernels.spike_prop.ops import tile_coo
+    rng = np.random.default_rng(5)
+    tgt = np.concatenate([rng.integers(0, 128, 500),
+                          rng.integers(256, 384, 500)])
+    src = np.concatenate([rng.integers(0, 256, 500),
+                          rng.integers(0, 384, 500)])
+    w = rng.integers(-256, 256, 1000).astype(np.float32)
+    return tile_coo(tgt, src, w, 3, 3, dev)
+
+
 @phase("kernels against plain (n = 20,000)")
 def phase_kernel_check():
     """Both kernels against their plain versions at FlyWire density, in
     both precisions, at silent, ~1%, ~30% and all-spiking activity, with
-    and without the stimulus channels, float32 state and drive partly
-    subnormal.  Tolerance: 0 (bitwise)."""
+    exactly one live source block, with and without the stimulus
+    channels, float32 state and drive partly subnormal; and the fused
+    kernel on a store where a live source block has no tile in some
+    target blocks.  Tolerance: 0 (bitwise)."""
     import numpy as np
     import torch
     from repro_torch.core.connectome import synthetic_flywire
@@ -286,12 +315,41 @@ def phase_kernel_check():
     rng = np.random.default_rng(1)
     worst = {"spike_deliver": 0.0, "fused_deliver_lif": 0.0}
     n_checks = 0
+
+    def fused_cases(blk_id, weights, n_tb, spk, nspk, what):
+        nonlocal n_checks
+        for fx in (True, False):
+            v, g, refrac = random_lif_rows(rng, n_tb, fx, dev, FLYWIRE_LIF)
+            gstim, vin, force = stim_rows(rng, n_tb, fx, dev, FLYWIRE_LIF)
+            for chans in ((None, None, None), (gstim, None, None),
+                          (None, vin, None), (None, None, force),
+                          (gstim, vin, force)):
+                kw = dict(params=FLYWIRE_LIF, fixed_point=fx)
+                a = K.fused_deliver_lif(blk_id, weights, spk, nspk, v, g,
+                                        refrac, *chans, **kw)
+                b = K.fused_deliver_lif_plain(blk_id, weights, spk, nspk, v,
+                                              g, refrac, *chans, **kw)
+                torch.cuda.synchronize()
+                err = max(max_abs_err(x, y) for x, y in zip(a, b))
+                worst["fused_deliver_lif"] = max(worst["fused_deliver_lif"],
+                                                 err)
+                have = [x is not None for x in chans]
+                check(equal_all(a, b), f"fused_deliver_lif != plain at "
+                      f"{what}, fixed_point={fx}, channels {have}: max "
+                      f"|err| {err}")
+                n_checks += 1
+
     for quantized in (True, False):
         bs = build_blocked(
             c, quantize_weights(c.in_weights) if quantized else None, dev)
-        for frac in (0.0, 0.01, 0.3, 1.0):
-            spikes = torch.from_numpy(rng.random(c.n) < frac).to(dev)
+        one = np.zeros(c.n, bool)
+        one[rng.choice(np.arange(128, 256), 5, replace=False)] = True
+        for frac in (0.0, 0.01, 0.3, 1.0, "one block"):
+            s = one if frac == "one block" else rng.random(c.n) < frac
+            spikes = torch.from_numpy(s).to(dev)
             spk, nspk = pad_spike_blocks(spikes, bs.n, bs.n_sb)
+            if frac == "one block":
+                check(int((nspk > 0).sum()) == 1, "one live source block")
             a = K.spike_deliver_tiles(bs.blk_id, bs.weights, spk, nspk)
             b = K.spike_deliver_plain(bs.blk_id, bs.weights, spk, nspk)
             torch.cuda.synchronize()
@@ -300,29 +358,17 @@ def phase_kernel_check():
             check(torch.equal(a, b), f"spike_deliver != plain at activity "
                   f"{frac}, quantized={quantized}: max |err| {err}")
             n_checks += 1
-            for fx in (True, False):
-                v, g, refrac = random_lif_rows(rng, bs.n_tb, fx, dev,
-                                               FLYWIRE_LIF)
-                gstim, vin, force = stim_rows(rng, bs.n_tb, fx, dev,
-                                              FLYWIRE_LIF)
-                for chans in ((None, None, None), (gstim, None, None),
-                              (None, vin, None), (None, None, force),
-                              (gstim, vin, force)):
-                    kw = dict(params=FLYWIRE_LIF, fixed_point=fx)
-                    a = K.fused_deliver_lif(bs.blk_id, bs.weights, spk, v, g,
-                                            refrac, *chans, **kw)
-                    b = K.fused_deliver_lif_plain(bs.blk_id, bs.weights, spk,
-                                                  v, g, refrac, *chans, **kw)
-                    torch.cuda.synchronize()
-                    err = max(max_abs_err(x, y) for x, y in zip(a, b))
-                    worst["fused_deliver_lif"] = max(
-                        worst["fused_deliver_lif"], err)
-                    have = [x is not None for x in chans]
-                    check(equal_all(a, b), f"fused_deliver_lif != plain at "
-                          f"activity {frac}, fixed_point={fx}, channels "
-                          f"{have}, quantized={quantized}: max |err| {err}")
-                    n_checks += 1
+            fused_cases(bs.blk_id, bs.weights, bs.n_tb, spk, nspk,
+                        f"activity {frac}, quantized={quantized}")
         del bs
+    blk_id, weights = missing_tile_store(dev)
+    check(bool((blk_id[1] == 3).all()) and not bool((blk_id[0] == 2).any()),
+          "the store lacks the tiles it should")
+    s = torch.zeros(384, dtype=torch.bool, device=dev)
+    s[[260, 300, 383]] = True       # source block 2 only
+    spk, nspk = pad_spike_blocks(s, 384, 3)
+    fused_cases(blk_id, weights, 3, spk, nspk,
+                "a live block missing from two target blocks")
     torch.cuda.empty_cache()
     print(f"kernel checks: {n_checks} comparisons, all bitwise equal; worst "
           f"|err| {json.dumps(worst)}", flush=True)
@@ -467,11 +513,28 @@ def sparse_matrix(c, cfg, device):
         torch.from_numpy(w), size=(c.n, c.n)).to(device)
 
 
+def delivery_bytes(syn, refs, spk, nspk, state_bytes):
+    """The spiking columns read, and the bytes a delivery call must move
+    for these spikes: nspk, the live source blocks' spike entries, the slot
+    of every (live source block, target block) pair (4 B each, what a slot
+    index would hold; the kernel's binary search reads more, a 32-byte
+    sector a probe), one 256-byte int16 tile row for every spiking column
+    of a stored tile, and `state_bytes` of state in and out.  `refs[b]` is
+    the number of target blocks that hold a tile of source block b."""
+    n_tb = syn.blk_id.shape[0]
+    n_live = int((nspk[:syn.n_sb] > 0).sum())
+    cols = int((spk[:syn.n_sb].sum(1).long() * refs).sum())
+    nbytes = (nspk.numel() * 4 + n_live * 128 * 4 + n_live * n_tb * 4
+              + cols * 128 * 2 + state_bytes)
+    return cols, nbytes
+
+
 @phase("yardstick at the main path's shapes")
 def phase_yardstick(c, cfg, syn, fused_res, smi):
     """Each kernel on the main path's tensors (the state after the run and
     the spikes it delivers next), against its plain version, timed; the
-    bound is the bytes the call must move over the HBM rate."""
+    bound is the bytes the call must move for this step's spikes
+    (`delivery_bytes`) over the HBM rate."""
     import torch
     from repro_torch.kernels.spike_prop import kernel as K
     from repro_torch.kernels.spike_prop.ops import pad_spike_blocks
@@ -492,11 +555,9 @@ def phase_yardstick(c, cfg, syn, fused_res, smi):
     v, g, refrac = rowblk(st.v), rowblk(st.g), rowblk(st.refrac)
     refs = torch.bincount(syn.blk_id.reshape(-1).long(),
                           minlength=syn.n_sb + 1)[:syn.n_sb]
-    cols = int((spk[:syn.n_sb].sum(1).long() * refs).sum())
     live_tiles = int(((nspk[:syn.n_sb] > 0).long() * refs).sum())
-    base = syn.blk_id.numel() * 4 + spk.numel() * 4 + cols * 128 * 2
-    deliver_bytes = base + nspk.numel() * 4 + rows * 4
-    fused_bytes = base + rows * 4 * 3 + rows * 4 * 4
+    cols, deliver_bytes = delivery_bytes(syn, refs, spk, nspk, rows * 4)
+    _, fused_bytes = delivery_bytes(syn, refs, spk, nspk, rows * 4 * 7)
 
     kw = dict(params=p, fixed_point=fx)
     a = K.spike_deliver_tiles(syn.blk_id, syn.weights, spk, nspk)
@@ -504,8 +565,9 @@ def phase_yardstick(c, cfg, syn, fused_res, smi):
     torch.cuda.synchronize()
     err_d = max_abs_err(a, b)
     check(torch.equal(a, b), f"spike_deliver != plain at full size ({err_d})")
-    fa = K.fused_deliver_lif(syn.blk_id, syn.weights, spk, v, g, refrac, **kw)
-    fb = K.fused_deliver_lif_plain(syn.blk_id, syn.weights, spk, v, g,
+    fa = K.fused_deliver_lif(syn.blk_id, syn.weights, spk, nspk, v, g,
+                             refrac, **kw)
+    fb = K.fused_deliver_lif_plain(syn.blk_id, syn.weights, spk, nspk, v, g,
                                    refrac, **kw)
     torch.cuda.synchronize()
     err_f = max(max_abs_err(x, y) for x, y in zip(fa, fb))
@@ -517,26 +579,55 @@ def phase_yardstick(c, cfg, syn, fused_res, smi):
     lib = (A @ s_col).reshape(-1)
     check(torch.equal(lib, a.reshape(-1)[:syn.n]),
           "torch.sparse CSR product != delivery kernel")
-    ms_d = cuda_ms(lambda: K.spike_deliver_tiles(syn.blk_id, syn.weights,
-                                                 spk, nspk), 50)
-    ms_f = cuda_ms(lambda: K.fused_deliver_lif(syn.blk_id, syn.weights, spk,
-                                               v, g, refrac, **kw), 50)
+    deliver = lambda: K.spike_deliver_tiles(  # noqa: E731
+        syn.blk_id, syn.weights, spk, nspk)
+    fused = lambda: K.fused_deliver_lif(  # noqa: E731
+        syn.blk_id, syn.weights, spk, nspk, v, g, refrac, **kw)
+    # a call of either wrapper costs more host time than its kernel takes
+    # at this activity, so back-to-back calls timed by CUDA events measure
+    # the host: the kernels' own time is the profiler's device time
+    call_d, call_f = cuda_ms(deliver, 50), cuda_ms(fused, 50)
+    ms_d = kernel_device_ms(deliver, 200, "spike_deliver_kernel")
+    ms_f = kernel_device_ms(fused, 200, "fused_deliver_lif_kernel")
     plain_d = cuda_ms(lambda: K.spike_deliver_plain(syn.blk_id, syn.weights,
                                                     spk, nspk), 2, warmup=1)
     plain_f = cuda_ms(lambda: K.fused_deliver_lif_plain(
-        syn.blk_id, syn.weights, spk, v, g, refrac, **kw), 2, warmup=1)
+        syn.blk_id, syn.weights, spk, nspk, v, g, refrac, **kw), 2, warmup=1)
     lib_ms = cuda_ms(lambda: A @ s_col, 50)
     bound_d = deliver_bytes / HBM_BYTES_PER_S * 1e3
     bound_f = fused_bytes / HBM_BYTES_PER_S * 1e3
     print(f"yardstick input: {int(spikes.sum())} spikes delivered, "
           f"{live_tiles} live tiles, {cols} spiking columns read; card "
           f"{smi}", flush=True)
-    print(f"spike_deliver: {ms_d:.5f} ms/call, plain {plain_d:.3f} ms, "
-          f"torch.sparse CSR mv {lib_ms:.5f} ms, bound {bound_d:.5f} ms "
-          f"({deliver_bytes} B)", flush=True)
-    print(f"fused_deliver_lif: {ms_f:.5f} ms/call, plain {plain_f:.3f} ms, "
-          f"bound {bound_f:.5f} ms ({fused_bytes} B)", flush=True)
+    print(f"spike_deliver: {ms_d:.5f} ms/launch (device time, profiler), "
+          f"wrapper {call_d:.5f} ms/call back to back (CUDA events), plain "
+          f"{plain_d:.3f} ms, torch.sparse CSR mv {lib_ms:.5f} ms, bound "
+          f"{bound_d:.5f} ms ({deliver_bytes} B)", flush=True)
+    print(f"fused_deliver_lif: {ms_f:.5f} ms/launch (device time, "
+          f"profiler), wrapper {call_f:.5f} ms/call back to back (CUDA "
+          f"events), plain {plain_f:.3f} ms, bound {bound_f:.5f} ms "
+          f"({fused_bytes} B)", flush=True)
     del A
+    # every source spiking: every stored tile is read whole
+    spk1, nspk1 = pad_spike_blocks(torch.ones(syn.n, dtype=torch.bool,
+                                              device=dev), syn.n, syn.n_sb)
+    fa = K.fused_deliver_lif(syn.blk_id, syn.weights, spk1, nspk1, v, g,
+                             refrac, **kw)
+    fb = K.fused_deliver_lif_plain(syn.blk_id, syn.weights, spk1, nspk1, v,
+                                   g, refrac, **kw)
+    torch.cuda.synchronize()
+    check(equal_all(fa, fb), "fused_deliver_lif != plain at all-spiking "
+          "activity on the full store")
+    del fa, fb
+    ms_all = cuda_ms(lambda: K.fused_deliver_lif(
+        syn.blk_id, syn.weights, spk1, nspk1, v, g, refrac, **kw), 5,
+        warmup=1)
+    cols_all, all_bytes = delivery_bytes(syn, refs, spk1, nspk1, rows * 4 * 7)
+    bound_all = all_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"fused_deliver_lif at all-spiking activity: {ms_all:.5f} ms/call "
+          f"(CUDA events, 5 calls), bound {bound_all:.5f} ms ({all_bytes} "
+          f"B, {cols_all} spiking columns of {syn.tiles_stored} tiles), "
+          f"bitwise equal to plain; card {smi}", flush=True)
     return {"spike_deliver": (ms_d, plain_d, bound_d, lib_ms, err_d),
             "fused_deliver_lif": (ms_f, plain_f, bound_f, None, err_f)}
 
@@ -728,7 +819,9 @@ def phase_flash_yardstick(smi, S=1024):
     """The kernel at a 1,024-token qwen2.5-14b prefill (H 40, Hkv 8, D
     128, causal): CUDA events, the plain version, the library call
     (scaled_dot_product_attention in float32, a yardstick the port never
-    calls) and the flop bound at the float32 non-tensor-core rate."""
+    calls), and two flop bounds: the kernel's own work, three TF32
+    products per float32 product at the TF32 tensor-core rate (the bound
+    it reports), and the same flops as float32 FMAs on the CUDA cores."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -751,12 +844,17 @@ def phase_flash_yardstick(smi, S=1024):
         q, k, v, is_causal=True, enable_gqa=True), 20)
     flops = 4 * D * B * H * causal_pairs(S, None)
     nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
-    bound = max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound = max(3 * flops / TF32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_f32 = max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     print(f"flash_attention at S={S}: {ms:.5f} ms/call (CUDA events; "
           f"bare kernel wrapper {dev_ms:.5f} ms, CUDA events), "
-          f"{flops / ms / 1e9:.2f} TFLOP/s, plain {plain_ms:.5f} ms, "
-          f"scaled_dot_product_attention {lib_ms:.5f} ms, bound {bound:.5f} "
-          f"ms ({flops} flop, {nbytes} B); card {smi}", flush=True)
+          f"{flops / ms / 1e9:.2f} TFLOP/s float32-equivalent "
+          f"({3 * flops / ms / 1e9:.2f} TFLOP/s of TF32 products), plain "
+          f"{plain_ms:.5f} ms, scaled_dot_product_attention {lib_ms:.5f} "
+          f"ms; bound {bound:.5f} ms (3xTF32: {3 * flops} TF32 flop at "
+          f"495 TFLOP/s), float32 CUDA-core bound {bound_f32:.5f} ms "
+          f"({flops} flop at 67 TFLOP/s; {nbytes} B); card {smi}",
+          flush=True)
     del q, k, v, out, lib
     torch.cuda.empty_cache()
     return ms, plain_ms, bound, lib_ms

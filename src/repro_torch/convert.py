@@ -20,6 +20,7 @@ from repro_torch.core.engines.blocked import BlockedState
 from repro_torch.core.engines.csr import CsrState
 from repro_torch.core.neuron import LIFState
 from repro_torch.core.step import SimCarry
+from repro_torch.kernels.spike_prop.ops import check_row_order
 
 _CONNECTOME_ARRAYS = ("in_indptr", "in_indices", "in_weights", "out_indptr",
                       "out_indices", "out_weights")
@@ -40,13 +41,15 @@ def blocked_from_jax(state, device=None) -> BlockedState:
     """A reference ``BlockedState`` (or ``BlockedSynapses``) as the port's:
     the float32 ``[tb, e, tgt, src]`` tiles become int16 ``[tb, e, src,
     tgt]``, the layout the kernels read.  Raises ``ValueError`` unless
-    every weight is an integer within int16."""
+    every weight is an integer within int16 and every ``blk_id`` row is
+    ascending with its pad slots last (``check_row_order``)."""
     w = np.asarray(state.weights)
     w16 = w.astype(np.int16)
     if not np.array_equal(w16.astype(w.dtype), w):
         raise ValueError("tile weights are not integers within int16")
     blk_id = np.asarray(state.blk_id).astype(np.int32)
     n_sb = int(state.n_sb)
+    check_row_order(blk_id, n_sb)
     return BlockedState(
         blk_id=_t(blk_id, device), weights=_t(w16.transpose(0, 1, 3, 2),
                                               device),

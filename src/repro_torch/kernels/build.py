@@ -50,7 +50,9 @@ def nvcc_path() -> str:
                        "use and need the CUDA toolkit (set CUDA_HOME)")
 
 
-def _library_path(source: str) -> str:
+def library_path(source: str) -> str:
+    """Where the library built from ``source`` lives (the name carries a
+    digest of the flags, the sources and the shared headers)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for d in (os.path.dirname(source), INCLUDE_DIR):
         for name in sorted(os.listdir(d)):
@@ -65,8 +67,8 @@ def build(sources: list[str]) -> dict[str, float]:
     """Compile every source whose library is missing, all at once; returns
     the seconds from the start until each compile had finished.  Raises
     with nvcc's output on failure."""
-    todo = [(s, _library_path(s)) for s in sources
-            if not os.path.exists(_library_path(s))]
+    todo = [(s, library_path(s)) for s in sources
+            if not os.path.exists(library_path(s))]
     if not todo:
         return {}
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -96,7 +98,7 @@ def load(source: str) -> ctypes.CDLL:
     lib = _LOADED.get(source)
     if lib is None:
         build([source])
-        lib = _LOADED[source] = ctypes.CDLL(_library_path(source))
+        lib = _LOADED[source] = ctypes.CDLL(library_path(source))
     return lib
 
 
@@ -141,4 +143,5 @@ def check_tensor(name: str, x, dtype, shape, device) -> None:
 
 
 __all__ = ["BUILD_DIR", "INCLUDE_DIR", "NVCC_FLAGS", "build", "check_tensor",
-           "function", "load", "nvcc_path", "raise_on", "stream"]
+           "function", "library_path", "load", "nvcc_path", "raise_on",
+           "stream"]

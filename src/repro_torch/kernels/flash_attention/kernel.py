@@ -11,8 +11,11 @@ flash_attention_gqa  flash_attention_pallas (kernel.py:85)        flash_attentio
 The TPU kernel takes GQA-expanded, block-padded ``[BH, S, D]`` operands and
 carries the running max, sum and accumulator in VMEM across a sequential kv
 grid axis.  Here one CUDA block owns a (batch x head, 64-query block) pair
-and loops over 64-key tiles itself, reading kv head ``h // groups`` in
-place (no expanded copy) and masking the ragged ends instead of padding.
+and loops over key tiles itself, reading kv head ``h // groups`` in place
+(no expanded copy) and masking the ragged ends instead of padding.  Both
+products run on the tensor cores at float32 accuracy: each operand is
+split into two TF32 parts and each product formed from three TF32
+products (3xTF32); see the source's note.
 The semantics are the TPU kernel's: query ``i`` sits at position ``i``
 (not end-aligned), keys at ``j >= Skv`` are masked, causal keeps
 ``j <= i``, a window keeps ``j > i - window - 1``, fully masked tiles are
@@ -42,7 +45,7 @@ MAX_HEAD_DIM = 256
 LAUNCHES = {"flash_attention": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P]
+_ARGTYPES = [_P] * 4 + [_I] * 6 + [_F, _I, _I, _I, _P]
 
 
 def reset_launches() -> None:
@@ -102,10 +105,12 @@ def flash_attention_gqa(q, k, v, *, scale: float, causal: bool,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_gqa: no kernel for {dev}")
     out = torch.empty_like(q)
+    # 16-byte copies need rows of whole 16-byte chunks on 16-byte bounds
+    vec = D % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (q, k, v))
     rc = build.function(SOURCE, "flash_attention_launch", _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv,
         Sq, Skv, D, scale, int(causal), -1 if window is None else window,
-        build.stream(dev))
+        int(vec), build.stream(dev))
     build.raise_on(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

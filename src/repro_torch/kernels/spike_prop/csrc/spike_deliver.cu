@@ -8,10 +8,13 @@
 // where a slot whose source block has nspk == 0 is skipped.
 //
 // Bound on an H100 (3.35 TB/s, 67 TFLOP/s float32 without tensor cores):
-// bytes.  The data this call needs is blk_id (4 B per slot), the spike
-// blocks, nspk, out, and one 256-byte int16 tile row for every (target
-// block, spiking source neuron) pair; it does two operations per weight
-// read, far below the float32 rate.
+// bytes, counted for the step's spikes.  The data this call needs is nspk,
+// the live source blocks' spike entries, the slot of every (live source
+// block, target block) pair (4 B, what a slot index would hold), out, and
+// one 256-byte int16 tile row for every (target block, spiking source
+// neuron) pair; it does two operations per weight read, far below the
+// float32 rate.  This kernel reads all of blk_id (4 B per slot) besides,
+// which at a few spikes a step is most of what it moves.
 //
 // Design against that bound: one CUDA block of 128 threads per target block
 // (thread = target row), walking its E slots in a loop that takes the place

@@ -1,4 +1,5 @@
-// Blocked-ELL tile accumulation shared by the two spike_prop kernels.
+// Blocked-ELL tile layout and the block-wide helpers of the two spike_prop
+// kernels.
 //
 // Layout (built by repro_torch/kernels/spike_prop/ops.py):
 //   blk_id  [n_tb, E]                 int32  source block of each tile slot;
@@ -25,31 +26,49 @@ struct SlotScratch {
   int warp_n[BLK / 32];
 };
 
-// All 128 threads call this for one live slot, each with its own entry s of
-// the source block.  The block lists the spiking columns in shared memory,
-// then each thread adds tile[c][t] * spk[c] over those columns only: a
-// spiking column is one coalesced 256-byte row of the source-major tile, and
-// a silent one is never read.  The weights are integers held exactly in
-// int16, so every product and sum below is exact in float32 (partial sums
-// stay below 2^24), whatever the order.
-__device__ __forceinline__ float accumulate_live_tile(
-    const int16_t* __restrict__ tile, float s, float acc, SlotScratch& sh) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  __syncthreads();  // the previous slot's readers are done with sh
-  const bool nz = s != 0.0f;
-  const unsigned m = __ballot_sync(0xffffffffu, nz);
-  if (lane == 0) sh.warp_n[warp] = __popc(m);
-  sh.spk[t] = s;
+// Block-wide stream compaction; every thread of the block calls it.
+// Returns the position of this thread among those with `flag`, in thread
+// order, and sets `total` to their number.  Its first barrier also tells
+// the caller that every thread is done with what it read before the call.
+__device__ __forceinline__ int compact(bool flag, int& total, int* warp_n) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned m = __ballot_sync(0xffffffffu, flag);
+  __syncthreads();  // warp_n's previous readers are done
+  if (lane == 0) warp_n[warp] = __popc(m);
   __syncthreads();
-  int off = 0, total = 0;
+  int off = 0;
+  total = 0;
 #pragma unroll
   for (int w = 0; w < BLK / 32; ++w) {
-    const int c = sh.warp_n[w];
+    const int c = warp_n[w];
     off += w < warp ? c : 0;
     total += c;
   }
-  if (nz) sh.cols[off + __popc(m & ((1u << lane) - 1u))] = t;
+  return off + __popc(m & ((1u << lane) - 1u));
+}
+
+// All 128 threads call this, each with its own entry s of a source block:
+// lists the block's spiking columns (in column order) in sh.cols and its
+// spikes in sh.spk, and returns the number of spiking columns.
+__device__ __forceinline__ int list_columns(float s, SlotScratch& sh) {
+  int total;
+  const int pos = compact(s != 0.0f, total, sh.warp_n);
+  sh.spk[threadIdx.x] = s;  // the previous readers of sh are done
+  if (s != 0.0f) sh.cols[pos] = threadIdx.x;
   __syncthreads();
+  return total;
+}
+
+// All 128 threads call this for one live slot, each with its own entry s
+// of the source block: each thread adds tile[c][t] * spk[c] over the
+// spiking columns only, a spiking column being one coalesced 256-byte row
+// of the source-major tile, a silent one never read.  The weights are
+// integers held exactly in int16, so every product and sum below is exact
+// in float32 (partial sums stay below 2^24), whatever the order.
+__device__ __forceinline__ float accumulate_live_tile(
+    const int16_t* __restrict__ tile, float s, float acc, SlotScratch& sh) {
+  const int t = threadIdx.x;
+  const int total = list_columns(s, sh);
   int k = 0;
   for (; k + 4 <= total; k += 4) {  // four independent loads in flight
     const int c0 = sh.cols[k], c1 = sh.cols[k + 1], c2 = sh.cols[k + 2],

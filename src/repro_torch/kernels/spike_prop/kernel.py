@@ -54,7 +54,7 @@ def reset_launches() -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "spike_deliver": [_P] * 5 + [_I, _I, _P],
-    "fused_deliver_lif": [_P] * 13 + [_I] * 3 + [_F] * 6 + [_I] * 6 + [_P],
+    "fused_deliver_lif": [_P] * 14 + [_I] * 4 + [_F] * 6 + [_I] * 6 + [_P],
 }
 
 
@@ -63,7 +63,7 @@ def _launcher(name: str):
     return build.function(SOURCES[name], f"{name}_launch", _ARGTYPES[name])
 
 
-def _check_store(blk_id, weights, spk_blocks):
+def _check_store(blk_id, weights, spk_blocks, nspk):
     if blk_id.dim() != 2 or spk_blocks.dim() != 2:
         raise ValueError("blk_id must be [n_tb, E], spk_blocks [n_sb+1, 128]")
     n_tb, E = blk_id.shape
@@ -72,6 +72,7 @@ def _check_store(blk_id, weights, spk_blocks):
     _check("weights", weights, torch.int16, (n_tb, E, SRC_BLK, TGT_BLK), dev)
     _check("spk_blocks", spk_blocks, torch.float32,
            (spk_blocks.shape[0], SRC_BLK), dev)
+    _check("nspk", nspk, torch.int32, (spk_blocks.shape[0],), dev)
     return n_tb, E, dev
 
 
@@ -102,13 +103,12 @@ def spike_deliver_plain(blk_id, weights, spk_blocks, nspk):
     return _gated_tile_sums(blk_id, weights, spk_blocks, nspk > 0)
 
 
-def fused_deliver_lif_plain(blk_id, weights, spk_blocks, v, g, refrac,
+def fused_deliver_lif_plain(blk_id, weights, spk_blocks, nspk, v, g, refrac,
                             gstim=None, vin=None, force=None, *,
                             params: LIFParams, fixed_point: bool):
     """Plain PyTorch version of :func:`fused_deliver_lif`: the gated sums,
     then the port's own ``lif_step`` / ``lif_step_fx`` on the rows."""
-    live = (spk_blocks != 0).any(dim=1)
-    g_units = _gated_tile_sums(blk_id, weights, spk_blocks, live)
+    g_units = _gated_tile_sums(blk_id, weights, spk_blocks, nspk > 0)
     if gstim is not None:
         g_units = ftz(ftz(g_units) + ftz(gstim))
     lif = LIFState(v=v.reshape(-1), g=g.reshape(-1), refrac=refrac.reshape(-1))
@@ -138,8 +138,7 @@ def spike_deliver_tiles(blk_id, weights, spk_blocks, nspk):
       nspk:       [n_sb + 1] int32 spikes per source block (the gate).
     Returns: [n_tb, TGT_BLK] float32 drive in weight units.
     """
-    n_tb, E, dev = _check_store(blk_id, weights, spk_blocks)
-    _check("nspk", nspk, torch.int32, (spk_blocks.shape[0],), dev)
+    n_tb, E, dev = _check_store(blk_id, weights, spk_blocks, nspk)
     if dev.type == "cpu":
         return spike_deliver_plain(blk_id, weights, spk_blocks, nspk)
     if dev.type != "cuda":
@@ -153,18 +152,23 @@ def spike_deliver_tiles(blk_id, weights, spk_blocks, nspk):
     return out
 
 
-def fused_deliver_lif(blk_id, weights, spk_blocks, v, g, refrac, gstim=None,
-                      vin=None, force=None, *, params: LIFParams,
+def fused_deliver_lif(blk_id, weights, spk_blocks, nspk, v, g, refrac,
+                      gstim=None, vin=None, force=None, *, params: LIFParams,
                       fixed_point: bool):
     """One call = one timestep: gated delivery, then one LIF step per
     neuron, for [n_tb, TGT_BLK] row blocks.
 
+    The store and the spikes are as for :func:`spike_deliver_tiles`, and
+    each ``blk_id`` row must be ascending with its pad slots last: the
+    kernel finds a live source block's slot by binary search.  ``ops``
+    checks that order once, where a store is built or carried over
+    (:func:`~repro_torch.kernels.spike_prop.ops.check_row_order`).
     ``v``/``g`` are float32 (mV) or int32 (Q19.12) by ``fixed_point``;
     ``refrac`` int32.  Optional channels: ``gstim`` float32 weight units,
     ``vin`` float32 mV or, when ``fixed_point``, int32 weight units already
     rounded, ``force`` int32 0/1.  Returns ``(v, g, refrac, spikes int32)``.
     """
-    n_tb, E, dev = _check_store(blk_id, weights, spk_blocks)
+    n_tb, E, dev = _check_store(blk_id, weights, spk_blocks, nspk)
     sdt = torch.int32 if fixed_point else torch.float32
     rows = (n_tb, TGT_BLK)
     _check("v", v, sdt, rows, dev)
@@ -176,8 +180,8 @@ def fused_deliver_lif(blk_id, weights, spk_blocks, v, g, refrac, gstim=None,
             _check(name, x, dt, rows, dev)
     if dev.type == "cpu":
         return fused_deliver_lif_plain(
-            blk_id, weights, spk_blocks, v, g, refrac, gstim, vin, force,
-            params=params, fixed_point=fixed_point)
+            blk_id, weights, spk_blocks, nspk, v, g, refrac, gstim, vin,
+            force, params=params, fixed_point=fixed_point)
     if dev.type != "cuda":
         raise ValueError(f"fused_deliver_lif: no kernel for {dev}")
     v_out, g_out = torch.empty_like(v), torch.empty_like(g)
@@ -185,11 +189,15 @@ def fused_deliver_lif(blk_id, weights, spk_blocks, v, g, refrac, gstim=None,
     spk_out = torch.empty(rows, dtype=torch.int32, device=dev)
     p = params
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    if weights.data_ptr() % 16:
+        raise ValueError("weights must be 16-byte aligned (the kernel copies "
+                         "tile rows 16 bytes at a time)")
     rc = _launcher("fused_deliver_lif")(
         blk_id.data_ptr(), weights.data_ptr(), spk_blocks.data_ptr(),
-        v.data_ptr(), g.data_ptr(), refrac.data_ptr(), ptr(gstim), ptr(vin),
-        ptr(force), v_out.data_ptr(), g_out.data_ptr(), refrac_out.data_ptr(),
-        spk_out.data_ptr(), n_tb, E, int(fixed_point), p.w_scale, p.alpha_m,
+        nspk.data_ptr(), v.data_ptr(), g.data_ptr(), refrac.data_ptr(),
+        ptr(gstim), ptr(vin), ptr(force), v_out.data_ptr(), g_out.data_ptr(),
+        refrac_out.data_ptr(), spk_out.data_ptr(), n_tb, E,
+        spk_blocks.shape[0] - 1, int(fixed_point), p.w_scale, p.alpha_m,
         p.v0, p.decay_g, p.v_th, p.v_r, p.fx_v0, p.fx_alpha_m16,
         p.fx_gdecay16, p.fx_v_th, p.fx_v_r, p.ref_steps, build.stream(dev))
     build.raise_on(rc, "fused_deliver_lif")

@@ -44,6 +44,20 @@ class BlockedSynapses:
         return int((self.blk_id < self.n_sb).sum())
 
 
+def check_row_order(blk_id: np.ndarray, n_sb: int) -> None:
+    """Raise ``ValueError`` unless every ``blk_id`` row is strictly
+    ascending with its pad slots (``n_sb``) last: the fused kernel finds a
+    source block's slot by binary search of its row, and would miss the
+    tiles of a row out of order."""
+    b = np.asarray(blk_id)
+    if b.size and (b.min() < 0 or b.max() > n_sb):
+        raise ValueError(f"blk_id holds ids outside [0, {n_sb}]")
+    d = np.diff(b, axis=-1)
+    if not np.all((d > 0) | ((d == 0) & (b[..., 1:] == n_sb))):
+        raise ValueError("every blk_id row must be strictly ascending with "
+                         "its pad slots last")
+
+
 def tile_coo(tgt: np.ndarray, src: np.ndarray, w: np.ndarray, n_tb: int,
              n_sb: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Group a (target, source, weight) COO into blocked-ELL int16 tiles on
@@ -73,6 +87,7 @@ def tile_coo(tgt: np.ndarray, src: np.ndarray, w: np.ndarray, n_tb: int,
         np.concatenate([[0], np.cumsum(tiles_per_tb)[:-1]]), tiles_per_tb)
     blk_id[(uniq_pairs // n_sb).astype(int), slot.astype(int)] = (
         uniq_pairs % n_sb)
+    check_row_order(blk_id, n_sb)
     e_of_pair = np.empty(len(pair), dtype=np.int64)
     e_of_pair[order] = np.repeat(slot, np.diff(
         np.concatenate([first, [len(pair_s)]])))
@@ -105,7 +120,8 @@ def build_blocked(c: Connectome, quantized: np.ndarray | None = None,
 
 def spike_blocks(spikes: torch.Tensor, n: int, n_sb: int) -> torch.Tensor:
     """[n] bool/float spikes -> [n_sb+1, SRC_BLK] float32 blocks with a
-    trailing zero pad block (the fused kernel derives its gate itself)."""
+    trailing zero pad block.  Both kernels also take the per-block counts
+    as their gate: see :func:`pad_spike_blocks`."""
     out = torch.zeros((n_sb + 1) * SRC_BLK, dtype=torch.float32,
                       device=spikes.device)
     out[:n] = spikes.to(torch.float32)
@@ -119,10 +135,11 @@ def pad_spike_blocks(spikes: torch.Tensor, n: int, n_sb: int
     return spk_pad, spk_pad.sum(dim=1).to(torch.int32)
 
 
-def fused_step(blk_id, weights, spk_pad, lif: LIFState, drive, n: int,
+def fused_step(blk_id, weights, spk_pad, nspk, lif: LIFState, drive, n: int,
                params: LIFParams, fixed_point: bool
                ) -> tuple[LIFState, torch.Tensor]:
-    """Run the fused delivery->LIF kernel on an [n]-neuron LIF state.
+    """Run the fused delivery->LIF kernel on an [n]-neuron LIF state, with
+    the spike blocks and counts of :func:`pad_spike_blocks`.
 
     Pads the state and the drive channels to [n_tb, TGT_BLK] row blocks,
     calls :func:`fused_deliver_lif` and unpads.  ``None`` channels stay
@@ -150,7 +167,7 @@ def fused_step(blk_id, weights, spk_pad, lif: LIFState, drive, n: int,
                if fixed_point else rowblk(drive.v_mv, torch.float32))
     force = None if drive.force is None else rowblk(drive.force, torch.int32)
     v, g, refrac, spk = fused_deliver_lif(
-        blk_id, weights, spk_pad, rowblk(lif.v, sdt), rowblk(lif.g, sdt),
+        blk_id, weights, spk_pad, nspk, rowblk(lif.v, sdt), rowblk(lif.g, sdt),
         rowblk(lif.refrac, torch.int32), gstim, vin, force, params=params,
         fixed_point=fixed_point)
 

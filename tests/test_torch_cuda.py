@@ -79,10 +79,10 @@ def test_kernels_match_plain(cuda, activity, quantized):
         for channels in CHANNELS:
             ch = [x if on else None for x, on in zip(stim, channels)]
             kw = dict(params=P, fixed_point=fx)
-            a = K.fused_deliver_lif(bs.blk_id, bs.weights, spk, *state, *ch,
-                                    **kw)
-            b = K.fused_deliver_lif_plain(bs.blk_id, bs.weights, spk, *state,
-                                          *ch, **kw)
+            a = K.fused_deliver_lif(bs.blk_id, bs.weights, spk, nspk, *state,
+                                    *ch, **kw)
+            b = K.fused_deliver_lif_plain(bs.blk_id, bs.weights, spk, nspk,
+                                          *state, *ch, **kw)
             torch.cuda.synchronize()
             assert all(torch.equal(x, y) for x, y in zip(a, b)), (fx,
                                                                   channels)
@@ -201,16 +201,16 @@ def test_fused_kernel_flushes_like_plain(cuda):
     bs = ops.build_blocked(c, None, cuda)
     rng = np.random.default_rng(6)
     s = torch.from_numpy(rng.random(c.n) < 0.02).to(cuda)
-    spk, _ = ops.pad_spike_blocks(s, bs.n, bs.n_sb)
+    spk, nspk = ops.pad_spike_blocks(s, bs.n, bs.n_sb)
     shape = (bs.n_tb, 128)
     t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
     v, g, gstim, vin = (t(_subnormal_f32(rng, shape)) for _ in range(4))
     refrac = t(rng.integers(-1, 3, shape).astype(np.int32))
     kw = dict(params=P, fixed_point=False)
-    a = K.fused_deliver_lif(bs.blk_id, bs.weights, spk, v, g, refrac, gstim,
-                            vin, None, **kw)
-    b = K.fused_deliver_lif_plain(bs.blk_id, bs.weights, spk, v, g, refrac,
-                                  gstim, vin, None, **kw)
+    a = K.fused_deliver_lif(bs.blk_id, bs.weights, spk, nspk, v, g, refrac,
+                            gstim, vin, None, **kw)
+    b = K.fused_deliver_lif_plain(bs.blk_id, bs.weights, spk, nspk, v, g,
+                                  refrac, gstim, vin, None, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -241,3 +241,82 @@ def test_flash_kernel_matches_attention_ref(cuda, B, H, Hkv, Sq, D, causal,
     assert FK.LAUNCHES["flash_attention"] == 1
     assert float((out - ref).abs().max()) <= 2e-4
     assert float((out - plain).abs().max()) <= 2e-4
+
+
+def missing_tile_store(dev):
+    """Target block 1 (of 3) holds no tile, block 0 none from source block
+    2: a live source block that some target blocks have no tile for.  The
+    CPU tests of test_torch_spike_prop.py use it too."""
+    rng = np.random.default_rng(5)
+    tgt = np.concatenate([rng.integers(0, 128, 500),
+                          rng.integers(256, 384, 500)])
+    src = np.concatenate([rng.integers(0, 256, 500),
+                          rng.integers(0, 384, 500)])
+    w = rng.integers(-256, 256, 1000).astype(np.float32)
+    return ops.tile_coo(tgt, src, w, 3, 3, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_live_block", "missing_tiles"])
+@pytest.mark.parametrize("fx", [False, True], ids=["f32", "q19_12"])
+def test_fused_kernel_live_list_cases(cuda, case, fx):
+    """Tolerance 0: the fused kernel's live-list edge cases against its
+    plain version, every channel present: exactly one live source block,
+    and a live block that some target blocks hold no tile for.  (Every
+    block live is test_kernels_match_plain's "all".)"""
+    rng = np.random.default_rng(9)
+    if case == "missing_tiles":
+        blk_id, weights = missing_tile_store(cuda)
+        assert bool((blk_id[1] == 3).all())
+        assert not bool((blk_id[0] == 2).any())
+        n, n_sb = 384, 3
+        s = np.zeros(n, bool)
+        s[[260, 300, 383]] = True
+    else:
+        c = synthetic_flywire(1800, seed=2)
+        bs = ops.build_blocked(c, None, cuda)
+        blk_id, weights, n, n_sb = bs.blk_id, bs.weights, c.n, bs.n_sb
+        s = np.zeros(n, bool)
+        s[[700, 701, 767]] = True
+    spk, nspk = ops.pad_spike_blocks(torch.from_numpy(s).to(cuda), n, n_sb)
+    assert int((nspk > 0).sum()) == 1
+    state, stim = _rows(blk_id.shape[0], fx, rng, cuda)
+    kw = dict(params=P, fixed_point=fx)
+    K.reset_launches()
+    a = K.fused_deliver_lif(blk_id, weights, spk, nspk, *state, *stim, **kw)
+    b = K.fused_deliver_lif_plain(blk_id, weights, spk, nspk, *state, *stim,
+                                  **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_deliver_lif"] == 1
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,window", [
+    (1, 4, 2, 100, 170, 32, True, None),      # Sq, Skv off the tiles
+    (2, 2, 1, 77, 77, 32, False, None),
+    (1, 2, 1, 150, 93, 256, True, None),      # D 256: 32-key tiles
+    (1, 2, 2, 130, 250, 256, False, 40),
+    (1, 2, 2, 90, 90, 30, True, None),        # D % 4 != 0: 4-byte copies
+])
+def test_flash_kernel_ragged_shapes(cuda, B, H, Hkv, Sq, Skv, D, causal,
+                                    window):
+    """atol 2e-4 against the plain version (query i at position i, as the
+    TPU kernel places it) at lengths that are not multiples of the query
+    or key tile, at the smallest and largest head dims; against
+    attention_ref too where Sq == Skv."""
+    g = torch.Generator(device=cuda).manual_seed(Sq * Skv + D)
+    q = torch.randn(B, H, Sq, D, device=cuda, generator=g)
+    k = torch.randn(B, Hkv, Skv, D, device=cuda, generator=g)
+    v = torch.randn(B, Hkv, Skv, D, device=cuda, generator=g)
+    FK.reset_launches()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    plain = FK.flash_attention_plain(q, k, v, scale=D ** -0.5, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention"] == 1
+    assert torch.isfinite(out).all()
+    assert float((out - plain).abs().max()) <= 2e-4
+    if Sq == Skv:
+        ref = attention_ref(q, k, v, causal=causal, window=window)
+        assert float((out - ref).abs().max()) <= 2e-4

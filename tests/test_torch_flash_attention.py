@@ -86,6 +86,83 @@ def test_unequal_lengths_follow_the_kernel_not_the_oracle():
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+def _tf32(x):
+    """float32 -> TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32`` rounds:
+    to nearest, ties away from zero, with integer operations on the bits
+    (adding half a TF32 ulp to the magnitude, then truncating)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    """x = hi + lo as the CUDA kernel splits it: hi rounded to TF32, lo the
+    exact rest truncated to TF32 (what the tensor cores read of it)."""
+    hi = _tf32(x)
+    rest = (x - hi).astype(np.float32).view(np.uint32)
+    return hi, (rest & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """a @ b as the CUDA kernel forms it: each operand split into TF32 hi
+    and lo, and each product as lo.hi + hi.lo + hi.hi (TF32 products are
+    exact in float32; the sums are taken in float64 here)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    t = lambda x: torch.from_numpy(x).double()  # noqa: E731
+    return (t(al) @ t(bh) + t(ah) @ t(bl) + t(ah) @ t(bh)).float().numpy()
+
+
+def _matmul_tf32(a, b):
+    """a @ b with each operand rounded to TF32 once: plain TF32."""
+    return (torch.from_numpy(_tf32(a)).double()
+            @ torch.from_numpy(_tf32(b)).double()).float().numpy()
+
+
+def _attention_with(matmul, q, k, v):
+    """Causal softmax attention over GQA operands with ``matmul`` for both
+    products (the probabilities are float32 before P.V)."""
+    H, Hkv, S, D = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    k, v = (np.repeat(x, H // Hkv, axis=1) for x in (k, v))
+    s = matmul(q, np.swapaxes(k, -1, -2)) * np.float32(D ** -0.5)
+    mask = np.tril(np.ones((S, S), bool))
+    s = np.where(mask, s, -np.inf)
+    p = np.where(mask, np.exp(s - s.max(-1, keepdims=True)), 0.0)
+    p = p.astype(np.float32)
+    return matmul(p, v) / p.sum(-1, keepdims=True, dtype=np.float32)
+
+
+def test_tf32_rounding_helper():
+    x = np.array([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                  -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12], np.float32)
+    want = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                     -(1.0 + 2.0 ** -10), 1.0], np.float32)
+    np.testing.assert_array_equal(_tf32(x), want)   # ties away from zero
+    y = np.random.default_rng(0).normal(0, 1, 100_000).astype(np.float32)
+    hi, lo = _split(y)
+    assert np.all(hi.view(np.uint32) & 0x1FFF == 0)
+    assert np.all(lo.view(np.uint32) & 0x1FFF == 0)
+    resid = np.abs(y.astype(np.float64) - hi - lo) / np.abs(y)
+    assert resid.max() <= 2.0 ** -21                # two TF32 parts: ~21 bits
+
+
+def test_3xtf32_split_holds_the_tolerance_at_qwen_heads():
+    """The flash kernel's precision scheme, before the card sees it: at the
+    qwen2.5-14b head layout (40 query heads over 8 kv heads of 128), both
+    products formed from split TF32 operands give attention within 2e-4
+    of attention_ref and of the JAX kernel (Pallas, interpret mode); one
+    TF32 product each would not."""
+    q, k, v = _inputs(1, 40, 8, 64, 128, seed=6)
+    got = _attention_with(_matmul_3xtf32, q, k, v)
+    ref = attention_ref(*(torch.from_numpy(x) for x in (q, k, v)),
+                        causal=True).numpy()
+    want_k = np.asarray(jax_flash(*(jnp.asarray(x) for x in (q, k, v)),
+                                  causal=True))
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, want_k, atol=ATOL, rtol=0)
+    plain_tf32 = _attention_with(_matmul_tf32, q, k, v)
+    assert np.abs(plain_tf32 - ref).max() > ATOL
+
+
 def test_dtype_round_trip_and_launch_count():
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
                for x in _inputs(1, 2, 1, 64, 32, seed=5))

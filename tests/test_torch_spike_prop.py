@@ -25,6 +25,8 @@ from repro_torch.exp.stimulus import StimDrive
 from repro_torch.kernels.spike_prop import kernel as K
 from repro_torch.kernels.spike_prop import ops
 
+from test_torch_cuda import missing_tile_store
+
 ACTIVITY = {"silent": 0.0, "sparse": 0.02, "all": 1.0}
 CHANNELS = [(g, v, f) for g in (0, 1) for v in (0, 1) for f in (0, 1)]
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -50,9 +52,9 @@ def _spikes(n, activity, seed=0):
     return np.random.default_rng(seed).random(n) < ACTIVITY[activity]
 
 
-def _rows(bs, fx, seed):
+def _rows(n_tb, fx, seed):
     rng = np.random.default_rng(seed)
-    shape = (bs.blk_id.shape[0], 128)
+    shape = (n_tb, 128)
     refrac = rng.integers(-1, RP.ref_steps + 1, shape).astype(np.int32)
     if fx:
         v = rng.integers(-2 * RP.fx_v_th, 2 * RP.fx_v_th, shape)
@@ -103,15 +105,16 @@ def test_plain_deliver_matches_pallas(store, activity):
 def test_plain_fused_matches_pallas(store, fx, channels, activity):
     c, bs, pbs = store
     s = _spikes(c.n, activity, seed=1)
-    (v, g, refrac), stim = _rows(bs, fx, seed=hash((fx, channels)) % 1000)
+    (v, g, refrac), stim = _rows(bs.blk_id.shape[0], fx,
+                                 seed=hash((fx, channels)) % 1000)
     stim = [x if on else None for x, on in zip(stim, channels)]
     spk = ref_ops.spike_blocks(jnp.asarray(s), bs.n, bs.n_sb)
     want = ref_kernel.fused_deliver_lif_pallas(
         jnp.asarray(bs.blk_id), jnp.asarray(bs.weights), spk, v, g, refrac,
         *stim, params=RP, fixed_point=fx, interpret=True)
     got = K.fused_deliver_lif_plain(
-        pbs.blk_id, pbs.weights, ops.spike_blocks(torch.from_numpy(s), bs.n,
-                                                  bs.n_sb),
+        pbs.blk_id, pbs.weights, *ops.pad_spike_blocks(torch.from_numpy(s),
+                                                       bs.n, bs.n_sb),
         _t(v), _t(g), _t(refrac), *(_t(x) for x in stim), params=P,
         fixed_point=fx)
     for a, b in zip(want, got):
@@ -142,13 +145,104 @@ def test_fused_step_matches_reference(store, fx):
         ref_ops.spike_blocks(jnp.asarray(s), n, bs.n_sb), RefLIF(*lif),
         RefDrive(*drive), n, RP, fx, True)
     pst, pspk = ops.fused_step(
-        pbs.blk_id, pbs.weights, ops.spike_blocks(torch.from_numpy(s), n,
-                                                  bs.n_sb),
+        pbs.blk_id, pbs.weights, *ops.pad_spike_blocks(torch.from_numpy(s),
+                                                       n, bs.n_sb),
         LIFState(*(_t(x) for x in lif)), StimDrive(*(_t(x) for x in drive)),
         n, P, fx)
     for a, b in zip(rst, pst):
         _same(a, b.numpy())
     _same(rspk, pspk.numpy())
+
+
+def _rows_ascending_pads_last(blk_id, n_sb):
+    for row in np.asarray(blk_id):
+        real = row[row < n_sb]
+        assert np.all(np.diff(real) > 0)            # ascending, no repeat
+        assert np.all(row[len(real):] == n_sb)      # pads after them
+
+
+def test_blk_id_rows_ascending_pads_last(store):
+    """The fused kernel finds a live source block's slot by binary search
+    of its target block's blk_id row: every row must be strictly ascending
+    with the pad slots (n_sb) last.  The port's tile_coo, the reference's
+    store carried over, and a store with an empty target block."""
+    c, bs, pbs = store
+    own = ops.build_blocked(convert.connectome_from_jax(c), device="cpu")
+    for blk_id in (own.blk_id, pbs.blk_id):
+        _rows_ascending_pads_last(blk_id, bs.n_sb)
+    blk_id, _ = missing_tile_store("cpu")
+    _rows_ascending_pads_last(blk_id, 3)
+    assert (blk_id[1] == 3).all() and (blk_id[[0, 2]] < 3).any()
+
+
+@pytest.mark.parametrize("row,ok", [
+    ([0, 2, 3, 3], True),
+    ([3, 3, 3, 3], True),
+    ([0, 1, 2, 3], True),
+    ([2, 0, 3, 3], False),      # out of order
+    ([0, 3, 2, 3], False),      # a pad before a stored tile
+    ([1, 1, 3, 3], False),      # a source block twice
+    ([0, 4, 3, 3], False),      # an id past the pad
+])
+def test_check_row_order(row, ok):
+    """The stores the fused kernel may be given are checked where they are
+    built (tile_coo) or carried over (convert.blocked_from_jax): a row out
+    of order raises there, not as lost deliveries on the card."""
+    blk_id = np.array([[0, 1, 3, 3], row], dtype=np.int32)
+    if ok:
+        ops.check_row_order(blk_id, 3)
+        return
+    with pytest.raises(ValueError):
+        ops.check_row_order(blk_id, 3)
+    ref = ref_ops.BlockedSynapses(
+        blk_id=blk_id, weights=np.zeros((2, 4, 128, 128), np.float32), n=384,
+        n_tb=2, n_sb=3, occupancy=0.0)
+    with pytest.raises(ValueError, match="blk_id"):
+        convert.blocked_from_jax(ref, device="cpu")
+
+
+@pytest.mark.parametrize("which", ["synthetic", "empty_block"])
+def test_binary_search_finds_exactly_the_stored_tiles(store, which):
+    """The kernel's slot search on these rows: lower_bound of a source
+    block in a row lands on its slot iff the (target, source) block pair
+    has a stored tile, and on a pad or a larger id otherwise."""
+    if which == "synthetic":
+        blk_id, n_sb = store[2].blk_id.numpy(), store[1].n_sb
+    else:
+        blk_id, n_sb = missing_tile_store("cpu")[0].numpy(), 3
+    for row in blk_id:
+        stored = set(row[row < n_sb].tolist())
+        for sb in range(n_sb):
+            e = int(np.searchsorted(row, sb, side="left"))
+            found = e < len(row) and row[e] == sb
+            assert found == (sb in stored)
+
+
+@pytest.mark.parametrize("fx", [False, True], ids=["f32", "q19_12"])
+def test_plain_fused_on_empty_target_block_and_one_live_block(fx):
+    """One live source block, with a target block that holds no tile for
+    it: that block gets no drive, the others theirs; the plain fused
+    version against the unfused composition."""
+    blk_id, weights = missing_tile_store("cpu")
+    s = torch.zeros(384, dtype=torch.bool)
+    s[[130, 140, 200]] = True                        # source block 1 only
+    spk, nspk = ops.pad_spike_blocks(s, 384, 3)
+    assert int((nspk > 0).sum()) == 1
+    drive = K.spike_deliver_plain(blk_id, weights, spk, nspk)
+    assert torch.all(drive[1] == 0) and drive.abs().sum() > 0
+    (v, g, refrac), _ = _rows(3, fx, 8)
+    got = K.fused_deliver_lif_plain(blk_id, weights, spk, nspk, _t(v), _t(g),
+                                    _t(refrac), params=P, fixed_point=fx)
+    lif = LIFState(_t(v).reshape(-1), _t(g).reshape(-1),
+                   _t(refrac).reshape(-1))
+    from repro_torch.core.neuron import lif_step, lif_step_fx
+    if fx:
+        want, spikes = lif_step_fx(lif, drive.reshape(-1).round().to(
+            torch.int32), P)
+    else:
+        want, spikes = lif_step(lif, drive.reshape(-1), P)
+    for a, b in zip(got, (*want, spikes.to(torch.int32))):
+        _same(a.reshape(-1).numpy(), b.numpy())
 
 
 def test_spike_deliver_matches_dense(store):
@@ -176,11 +270,11 @@ def test_wrappers_on_cpu_take_the_plain_path(store, monkeypatch):
                                              nspk),
                        K.spike_deliver_plain(pbs.blk_id, pbs.weights, spk,
                                              nspk))
-    (v, g, r), _ = _rows(bs, True, 5)
-    a = K.fused_deliver_lif(pbs.blk_id, pbs.weights, spk, _t(v), _t(g),
-                            _t(r), params=P, fixed_point=True)
-    b = K.fused_deliver_lif_plain(pbs.blk_id, pbs.weights, spk, _t(v), _t(g),
-                                  _t(r), params=P, fixed_point=True)
+    (v, g, r), _ = _rows(bs.blk_id.shape[0], True, 5)
+    a = K.fused_deliver_lif(pbs.blk_id, pbs.weights, spk, nspk, _t(v),
+                            _t(g), _t(r), params=P, fixed_point=True)
+    b = K.fused_deliver_lif_plain(pbs.blk_id, pbs.weights, spk, nspk, _t(v),
+                                  _t(g), _t(r), params=P, fixed_point=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert K.LAUNCHES == {"spike_deliver": 0, "fused_deliver_lif": 0}
 
@@ -198,7 +292,7 @@ def test_wrappers_reject_bad_inputs(store):
                               spk, nspk)
     v = torch.zeros(pbs.blk_id.shape[0], 128)
     with pytest.raises(ValueError, match="v"):
-        K.fused_deliver_lif(pbs.blk_id, pbs.weights, spk, v, v,
+        K.fused_deliver_lif(pbs.blk_id, pbs.weights, spk, nspk, v, v,
                             v.int(), params=P, fixed_point=True)
     meta = [x.to("meta") for x in (pbs.blk_id, pbs.weights, spk, nspk)]
     with pytest.raises(ValueError, match="no kernel"):
