@@ -22,9 +22,11 @@ kernel against its plain PyTorch version, then drives three paths:
   requests; its tokens are held against a plain-attention run of the same
   weights.
 
-Every phase raises on failure; nothing is caught.  The last lines are a
-JSON line of kernel measurements, the card's name and power limit, and
-``{"ok": true, "device": ...}``.
+Both delivery kernels are also timed on the full FlyWire store with
+0.1%, 1% and every neuron spiking.  Every phase raises on failure;
+nothing is caught.  The last lines are a JSON line of those activity
+cases, a JSON line of kernel measurements, the card's name and power
+limit, and ``{"ok": true, "device": ...}``.
 
 It imports PyTorch, numpy and the port (``src/repro_torch``), and nothing
 of JAX.
@@ -35,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +51,12 @@ N_KERNEL_CHECK = 20_000
 T_MAIN = 1_000
 T_OTHER = 200
 T_LIF = 1_000
+ACTIVITY = (0.001, 0.01, 1.0)   # fractions of the neurons spiking a step
+# 9 resident blocks of 128 threads an SM: 65,536 / (9 x 128) registers a
+# thread, rounded down to the allocation's multiple of 8; 19,216 B of
+# shared memory a block, which cuobjdump reports with the 1 KB the card
+# reserves for each block
+MAX_REGS, MAX_SHARED = 56, 19_216 + 1_024
 LM_REQUESTS = 8
 LM_PROMPT = (256, 1536)        # prompt lengths drawn in this range
 LM_NEW = 16
@@ -233,6 +242,21 @@ def phase_build():
     check(bool(hmma), "no TF32 HMMA instruction in the flash kernel's SASS")
     print(f"flash kernel SASS: {len(hmma)} TF32 HMMA instructions, e.g. "
           f"{hmma[0]}", flush=True)
+    # the delivery kernels must keep 9 blocks an SM resident: all 1,088
+    # target blocks of FlyWire in one wave
+    from repro_torch.kernels.spike_prop import kernel as K
+    for name, src in K.SOURCES.items():
+        res = subprocess.run(
+            [cuobjdump, "-res-usage", build.library_path(src)], check=True,
+            capture_output=True, text=True, timeout=300).stdout
+        use = [(int(r), int(s)) for r, s in re.findall(
+            r"REG:(\d+) STACK:\d+ SHARED:(\d+)", res)]
+        check(bool(use), f"no resource usage for {name}:\n{res}")
+        print(f"{name}: registers, shared memory per instantiation {use}",
+              flush=True)
+        check(all(r <= MAX_REGS and s <= MAX_SHARED for r, s in use),
+              f"{name} uses more than {MAX_REGS} registers a thread or "
+              f"{MAX_SHARED} B of shared memory a block: {use}")
 
 
 def with_subnormals(rng, x):
@@ -294,14 +318,28 @@ def missing_tile_store(dev):
     return tile_coo(tgt, src, w, 3, 3, dev)
 
 
+def straddle_spikes(rng, n):
+    """One to three spiking neurons in every source block: live tiles of
+    1-3 spiking columns each, whose rows fill the kernels' 32-row staging
+    units only together, so a unit spans several tiles."""
+    import numpy as np
+    s = np.zeros(n, bool)
+    for lo in range(0, n, 128):
+        block = np.arange(lo, min(n, lo + 128))
+        s[rng.choice(block, min(len(block), rng.integers(1, 4)),
+                     replace=False)] = True
+    return s
+
+
 @phase("kernels against plain (n = 20,000)")
 def phase_kernel_check():
     """Both kernels against their plain versions at FlyWire density, in
     both precisions, at silent, ~1%, ~30% and all-spiking activity, with
-    exactly one live source block, with and without the stimulus
-    channels, float32 state and drive partly subnormal; and the fused
-    kernel on a store where a live source block has no tile in some
-    target blocks.  Tolerance: 0 (bitwise)."""
+    exactly one live source block, with 1-3 spiking columns in every
+    source block (staging units that straddle tiles), with and without
+    the stimulus channels, float32 state and drive partly subnormal; and
+    on a store where a live source block has no tile in some target
+    blocks.  Tolerance: 0 (bitwise)."""
     import numpy as np
     import torch
     from repro_torch.core.connectome import synthetic_flywire
@@ -315,6 +353,17 @@ def phase_kernel_check():
     rng = np.random.default_rng(1)
     worst = {"spike_deliver": 0.0, "fused_deliver_lif": 0.0}
     n_checks = 0
+
+    def deliver_case(blk_id, weights, spk, nspk, what):
+        nonlocal n_checks
+        a = K.spike_deliver_tiles(blk_id, weights, spk, nspk)
+        b = K.spike_deliver_plain(blk_id, weights, spk, nspk)
+        torch.cuda.synchronize()
+        err = max_abs_err(a, b)
+        worst["spike_deliver"] = max(worst["spike_deliver"], err)
+        check(torch.equal(a, b), f"spike_deliver != plain at {what}: max "
+              f"|err| {err}")
+        n_checks += 1
 
     def fused_cases(blk_id, weights, n_tb, spk, nspk, what):
         nonlocal n_checks
@@ -344,22 +393,26 @@ def phase_kernel_check():
             c, quantize_weights(c.in_weights) if quantized else None, dev)
         one = np.zeros(c.n, bool)
         one[rng.choice(np.arange(128, 256), 5, replace=False)] = True
-        for frac in (0.0, 0.01, 0.3, 1.0, "one block"):
-            s = one if frac == "one block" else rng.random(c.n) < frac
+        for frac in (0.0, 0.01, 0.3, 1.0, "one block", "straddling units"):
+            if frac == "one block":
+                s = one
+            elif frac == "straddling units":
+                s = straddle_spikes(rng, c.n)
+            else:
+                s = rng.random(c.n) < frac
             spikes = torch.from_numpy(s).to(dev)
             spk, nspk = pad_spike_blocks(spikes, bs.n, bs.n_sb)
             if frac == "one block":
                 check(int((nspk > 0).sum()) == 1, "one live source block")
-            a = K.spike_deliver_tiles(bs.blk_id, bs.weights, spk, nspk)
-            b = K.spike_deliver_plain(bs.blk_id, bs.weights, spk, nspk)
-            torch.cuda.synchronize()
-            err = max_abs_err(a, b)
-            worst["spike_deliver"] = max(worst["spike_deliver"], err)
-            check(torch.equal(a, b), f"spike_deliver != plain at activity "
-                  f"{frac}, quantized={quantized}: max |err| {err}")
-            n_checks += 1
-            fused_cases(bs.blk_id, bs.weights, bs.n_tb, spk, nspk,
-                        f"activity {frac}, quantized={quantized}")
+            if frac == "straddling units":
+                # tile rows each target block reads
+                rows = nspk[bs.blk_id.long()].sum(dim=1)
+                check(int(rows.min()) >= 3 * 32 and int(nspk.max()) <= 3,
+                      f"the straddling case reads {int(rows.min())} rows "
+                      f"in some target block, or a tile has > 3 columns")
+            what = f"activity {frac}, quantized={quantized}"
+            deliver_case(bs.blk_id, bs.weights, spk, nspk, what)
+            fused_cases(bs.blk_id, bs.weights, bs.n_tb, spk, nspk, what)
         del bs
     blk_id, weights = missing_tile_store(dev)
     check(bool((blk_id[1] == 3).all()) and not bool((blk_id[0] == 2).any()),
@@ -367,8 +420,9 @@ def phase_kernel_check():
     s = torch.zeros(384, dtype=torch.bool, device=dev)
     s[[260, 300, 383]] = True       # source block 2 only
     spk, nspk = pad_spike_blocks(s, 384, 3)
-    fused_cases(blk_id, weights, 3, spk, nspk,
-                "a live block missing from two target blocks")
+    what = "a live block missing from two target blocks"
+    deliver_case(blk_id, weights, spk, nspk, what)
+    fused_cases(blk_id, weights, 3, spk, nspk, what)
     torch.cuda.empty_cache()
     print(f"kernel checks: {n_checks} comparisons, all bitwise equal; worst "
           f"|err| {json.dumps(worst)}", flush=True)
@@ -462,17 +516,22 @@ def phase_main(c, cfg, stim):
 
 
 @phase("trace of the main path (torch.profiler)")
-def phase_trace(c, cfg, stim, syn, steps: int = 50):
+def phase_trace(c, cfg, stim, syn, steps: int = 20):
     """Device time per step, kernels per step and the device's busy share
-    over a short blocked_fused window, from the profiler's CUDA events."""
+    over a short window of the blocked_fused and blocked engines, from the
+    profiler's CUDA events (the host clock cannot resolve a kernel's
+    change of ~0.1 ms a step)."""
     from repro_torch.core import simulate
     from repro_torch.exp import ProbeSpec
-    wall_ms, kernels = device_profile(lambda: simulate(
-        c, cfg, steps, seed=1, syn=syn, stimulus=stim, probes=ProbeSpec()))
-    per_step = None if kernels is None else {
-        k: (ms / steps, n / steps) for k, (ms, n) in kernels.items()}
-    print_breakdown(f"trace over {steps} steps, per step", wall_ms / steps,
-                    per_step, top=6)
+    for engine in ("blocked_fused", "blocked"):
+        run_cfg = dataclasses.replace(cfg, engine=engine)
+        wall_ms, kernels = device_profile(lambda: simulate(
+            c, run_cfg, steps, seed=1, syn=syn, stimulus=stim,
+            probes=ProbeSpec()))
+        per_step = None if kernels is None else {
+            k: (ms / steps, n / steps) for k, (ms, n) in kernels.items()}
+        print_breakdown(f"{engine} trace over {steps} steps, per step",
+                        wall_ms / steps, per_step, top=6)
 
 
 @phase("other engine and precision at full size")
@@ -534,7 +593,8 @@ def phase_yardstick(c, cfg, syn, fused_res, smi):
     """Each kernel on the main path's tensors (the state after the run and
     the spikes it delivers next), against its plain version, timed; the
     bound is the bytes the call must move for this step's spikes
-    (`delivery_bytes`) over the HBM rate."""
+    (`delivery_bytes`) over the HBM rate.  Then both kernels across the
+    activity range (`ACTIVITY`, `activity_case`)."""
     import torch
     from repro_torch.kernels.spike_prop import kernel as K
     from repro_torch.kernels.spike_prop.ops import pad_spike_blocks
@@ -608,28 +668,66 @@ def phase_yardstick(c, cfg, syn, fused_res, smi):
           f"events), plain {plain_f:.3f} ms, bound {bound_f:.5f} ms "
           f"({fused_bytes} B)", flush=True)
     del A
-    # every source spiking: every stored tile is read whole
-    spk1, nspk1 = pad_spike_blocks(torch.ones(syn.n, dtype=torch.bool,
-                                              device=dev), syn.n, syn.n_sb)
-    fa = K.fused_deliver_lif(syn.blk_id, syn.weights, spk1, nspk1, v, g,
-                             refrac, **kw)
-    fb = K.fused_deliver_lif_plain(syn.blk_id, syn.weights, spk1, nspk1, v,
-                                   g, refrac, **kw)
-    torch.cuda.synchronize()
-    check(equal_all(fa, fb), "fused_deliver_lif != plain at all-spiking "
-          "activity on the full store")
-    del fa, fb
-    ms_all = cuda_ms(lambda: K.fused_deliver_lif(
-        syn.blk_id, syn.weights, spk1, nspk1, v, g, refrac, **kw), 5,
-        warmup=1)
-    cols_all, all_bytes = delivery_bytes(syn, refs, spk1, nspk1, rows * 4 * 7)
-    bound_all = all_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"fused_deliver_lif at all-spiking activity: {ms_all:.5f} ms/call "
-          f"(CUDA events, 5 calls), bound {bound_all:.5f} ms ({all_bytes} "
-          f"B, {cols_all} spiking columns of {syn.tiles_stored} tiles), "
-          f"bitwise equal to plain; card {smi}", flush=True)
-    return {"spike_deliver": (ms_d, plain_d, bound_d, lib_ms, err_d),
-            "fused_deliver_lif": (ms_f, plain_f, bound_f, None, err_f)}
+    activity = [row for frac in ACTIVITY for row in activity_case(
+        syn, refs, frac, (v, g, refrac), kw, smi)]
+    return ({"spike_deliver": (ms_d, plain_d, bound_d, lib_ms, err_d),
+             "fused_deliver_lif": (ms_f, plain_f, bound_f, None, err_f)},
+            activity)
+
+
+def timed(fn, match: str) -> tuple[float, str]:
+    """Milliseconds per call of ``fn``'s one kernel launch, and how they
+    were taken: CUDA events over 5 back-to-back calls where a call takes
+    0.2 ms or more; below that a wrapper call's host time (~0.05-0.09 ms)
+    would weigh in, and the profiler's device time over 200 calls is
+    taken instead."""
+    ms = cuda_ms(fn, 5, warmup=1)
+    if ms >= 0.2:
+        return ms, "CUDA events, 5 calls"
+    return kernel_device_ms(fn, 200, match), "profiler device time"
+
+
+def activity_case(syn, refs, frac, state, kw, smi):
+    """Both delivery kernels on the full store with a fraction ``frac`` of
+    the neurons spiking (Bernoulli draws from numpy seed 0; 1.0 is every
+    neuron): each bitwise against its plain version once, then timed
+    beside its byte bound (`delivery_bytes`, counted for these spikes)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.spike_prop import kernel as K
+    from repro_torch.kernels.spike_prop.ops import pad_spike_blocks
+    s = np.random.default_rng(0).random(syn.n) < frac
+    spk, nspk = pad_spike_blocks(torch.from_numpy(s).to(DEVICE), syn.n,
+                                 syn.n_sb)
+    store = (syn.blk_id, syn.weights, spk, nspk)
+    rows = state[0].numel()
+    cases = {
+        "spike_deliver": (lambda: (K.spike_deliver_tiles(*store),),
+                          lambda: (K.spike_deliver_plain(*store),), rows * 4),
+        "fused_deliver_lif": (
+            lambda: K.fused_deliver_lif(*store, *state, **kw),
+            lambda: K.fused_deliver_lif_plain(*store, *state, **kw),
+            rows * 4 * 7)}
+    out = []
+    for name, (fn, plain, state_bytes) in cases.items():
+        a, b = fn(), plain()
+        torch.cuda.synchronize()
+        err = max(max_abs_err(x, y) for x, y in zip(a, b))
+        check(equal_all(a, b), f"{name} != plain with {frac:.1%} of the "
+              f"neurons spiking on the full store: max |err| {err}")
+        del a, b
+        ms, how = timed(fn, f"{name}_kernel")
+        cols, nbytes = delivery_bytes(syn, refs, spk, nspk, state_bytes)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"{name} with {frac:.1%} spiking ({int(s.sum())} neurons, "
+              f"{int((nspk[:syn.n_sb] > 0).sum())} live source blocks, "
+              f"{cols} spiking columns of stored tiles): {ms:.5f} ms/call "
+              f"({how}), bound {bound:.5f} ms ({nbytes} B), "
+              f"{ms / bound:.2f}x the bound; bitwise equal to plain; card "
+              f"{smi}", flush=True)
+        out.append({"kernel": name, "spiking": frac, "ms": ms,
+                    "timed_by": how, "bound_ms": bound, "max_abs_err": err})
+    return out
 
 
 @phase("LIF kernels against plain (n = 139,255)")
@@ -1020,7 +1118,7 @@ def flywire_section(smi):
     syn, fused, ms_fused, ms_csr, main_launches = phase_main(c, cfg, stim)
     phase_trace(c, cfg, stim, syn)
     other_launches = phase_other(c, cfg, stim, syn)
-    yard = phase_yardstick(c, cfg, syn, fused, smi)
+    yard, activity = phase_yardstick(c, cfg, syn, fused, smi)
     launches = {"spike_deliver": other_launches["spike_deliver"],
                 "fused_deliver_lif": main_launches["fused_deliver_lif"]}
     del syn, fused, stim, c
@@ -1031,7 +1129,7 @@ def flywire_section(smi):
           f"phases")
     print(f"FlyWire phases: blocked_fused {ms_fused:.4f} ms/step, csr "
           f"{ms_csr:.4f} ms/step; {left:.3f} GB left allocated", flush=True)
-    return yard, launches
+    return yard, activity, launches
 
 
 
@@ -1049,7 +1147,7 @@ def main() -> int:
     check_err.update(phase_lif_check())
     check_err["flash_attention"] = phase_flash_check()
 
-    yard, launches = flywire_section(smi)
+    yard, activity, launches = flywire_section(smi)
     lif_yard, lif_ms_step = phase_lif_path(smi)
     for name, (ms, plain_ms, bound, lib_ms, err, n) in lif_yard.items():
         yard[name] = (ms, plain_ms, bound, lib_ms, err)
@@ -1082,6 +1180,7 @@ def main() -> int:
           f"{json.dumps({k: round(v, 5) for k, v in lif_ms_step.items()})} "
           f"ms/step", flush=True)
     import torch
+    print(json.dumps({"activity": activity}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,10 @@
 // src_bytes = 0 writes zeros and reads nothing (src must still be a valid
 // address).
 //
-// The fused delivery->LIF kernel (kernels/spike_prop) and the flash-attention
-// kernel (kernels/flash_attention) include it from this shared directory,
-// whose files kernels/build.py hashes into every library's name.
+// The two delivery kernels (kernels/spike_prop, through deliver.cuh) and the
+// flash-attention kernel (kernels/flash_attention) include it from this
+// shared directory, whose files kernels/build.py hashes into every
+// library's name.
 #pragma once
 
 namespace async_copy {

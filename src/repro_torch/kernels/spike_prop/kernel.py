@@ -12,10 +12,12 @@ spike_deliver_tiles  spike_deliver_pallas (kernel.py:78)   spike_deliver.cu
 fused_deliver_lif    fused_deliver_lif_pallas (:196)       fused_deliver_lif.cu
 ==================== ===================================== ==================
 
-A wrapper takes the plain version for tensors on the CPU, and launches its
-kernel for tensors on a CUDA device (or raises); there is no fallback from
-one to the other.  ``LAUNCHES`` counts kernel launches per wrapper, so a
-run can show that it went through the kernels.
+Both kernels compute the delivery with one device function,
+``csrc/deliver.cuh``'s ``block_sum``.  A wrapper takes the plain version
+for tensors on the CPU, and launches its kernel for tensors on a CUDA
+device (or raises); there is no fallback from one to the other.
+``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
+it went through the kernels.
 
 The tile store is int16 and source-major, ``weights[tb, e, src, tgt]``
 (the reference stores float32 ``[tb, e, tgt, src]``; ``repro_torch.convert``
@@ -53,7 +55,7 @@ def reset_launches() -> None:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "spike_deliver": [_P] * 5 + [_I, _I, _P],
+    "spike_deliver": [_P] * 5 + [_I] * 3 + [_P],
     "fused_deliver_lif": [_P] * 14 + [_I] * 4 + [_F] * 6 + [_I] * 6 + [_P],
 }
 
@@ -74,6 +76,12 @@ def _check_store(blk_id, weights, spk_blocks, nspk):
            (spk_blocks.shape[0], SRC_BLK), dev)
     _check("nspk", nspk, torch.int32, (spk_blocks.shape[0],), dev)
     return n_tb, E, dev
+
+
+def _check_aligned(weights):
+    if weights.data_ptr() % 16:
+        raise ValueError("weights must be 16-byte aligned (the kernels copy "
+                         "tile rows 16 bytes at a time)")
 
 
 # --------------------------------------------------------------------------
@@ -137,16 +145,23 @@ def spike_deliver_tiles(blk_id, weights, spk_blocks, nspk):
       spk_blocks: [n_sb + 1, SRC_BLK] float32 spikes by source block.
       nspk:       [n_sb + 1] int32 spikes per source block (the gate).
     Returns: [n_tb, TGT_BLK] float32 drive in weight units.
+
+    Each ``blk_id`` row must be ascending with its pad slots last: the
+    kernel finds a live source block's slot by searching its row.  ``ops``
+    checks that order once, where a store is built or carried over
+    (:func:`~repro_torch.kernels.spike_prop.ops.check_row_order`).
     """
     n_tb, E, dev = _check_store(blk_id, weights, spk_blocks, nspk)
     if dev.type == "cpu":
         return spike_deliver_plain(blk_id, weights, spk_blocks, nspk)
     if dev.type != "cuda":
         raise ValueError(f"spike_deliver_tiles: no kernel for {dev}")
+    _check_aligned(weights)
     out = torch.empty((n_tb, TGT_BLK), dtype=torch.float32, device=dev)
     rc = _launcher("spike_deliver")(
         blk_id.data_ptr(), weights.data_ptr(), spk_blocks.data_ptr(),
-        nspk.data_ptr(), out.data_ptr(), n_tb, E, build.stream(dev))
+        nspk.data_ptr(), out.data_ptr(), n_tb, E, spk_blocks.shape[0] - 1,
+        build.stream(dev))
     build.raise_on(rc, "spike_deliver")
     LAUNCHES["spike_deliver"] += 1
     return out
@@ -158,11 +173,8 @@ def fused_deliver_lif(blk_id, weights, spk_blocks, nspk, v, g, refrac,
     """One call = one timestep: gated delivery, then one LIF step per
     neuron, for [n_tb, TGT_BLK] row blocks.
 
-    The store and the spikes are as for :func:`spike_deliver_tiles`, and
-    each ``blk_id`` row must be ascending with its pad slots last: the
-    kernel finds a live source block's slot by binary search.  ``ops``
-    checks that order once, where a store is built or carried over
-    (:func:`~repro_torch.kernels.spike_prop.ops.check_row_order`).
+    The store and the spikes are as for :func:`spike_deliver_tiles`, rows
+    in the same ascending order: both kernels share one delivery.
     ``v``/``g`` are float32 (mV) or int32 (Q19.12) by ``fixed_point``;
     ``refrac`` int32.  Optional channels: ``gstim`` float32 weight units,
     ``vin`` float32 mV or, when ``fixed_point``, int32 weight units already
@@ -189,9 +201,7 @@ def fused_deliver_lif(blk_id, weights, spk_blocks, nspk, v, g, refrac,
     spk_out = torch.empty(rows, dtype=torch.int32, device=dev)
     p = params
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    if weights.data_ptr() % 16:
-        raise ValueError("weights must be 16-byte aligned (the kernel copies "
-                         "tile rows 16 bytes at a time)")
+    _check_aligned(weights)
     rc = _launcher("fused_deliver_lif")(
         blk_id.data_ptr(), weights.data_ptr(), spk_blocks.data_ptr(),
         nspk.data_ptr(), v.data_ptr(), g.data_ptr(), refrac.data_ptr(),

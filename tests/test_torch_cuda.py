@@ -256,13 +256,32 @@ def missing_tile_store(dev):
     return ops.tile_coo(tgt, src, w, 3, 3, dev)
 
 
+def straddle_spikes(rng, n):
+    """One to three spiking neurons in every source block: live tiles of
+    1-3 spiking columns each, whose rows fill the kernels' 32-row staging
+    units only together, so a unit spans several tiles (chip_smoke.py has
+    the same case)."""
+    s = np.zeros(n, bool)
+    for lo in range(0, n, 128):
+        block = np.arange(lo, min(n, lo + 128))
+        s[rng.choice(block, min(len(block), rng.integers(1, 4)),
+                     replace=False)] = True
+    return s
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["one_live_block", "missing_tiles"])
-@pytest.mark.parametrize("fx", [False, True], ids=["f32", "q19_12"])
-def test_fused_kernel_live_list_cases(cuda, case, fx):
-    """Tolerance 0: the fused kernel's live-list edge cases against its
-    plain version, every channel present: exactly one live source block,
-    and a live block that some target blocks hold no tile for.  (Every
+@pytest.mark.parametrize("case", ["one_live_block", "missing_tiles",
+                                  "straddling_units"])
+@pytest.mark.parametrize("kernel,fx", [("spike_deliver", None),
+                                       ("fused_deliver_lif", False),
+                                       ("fused_deliver_lif", True)],
+                         ids=["deliver", "fused-f32", "fused-q19_12"])
+def test_fused_kernel_live_list_cases(cuda, case, kernel, fx):
+    """Tolerance 0: both delivery kernels' live-list edge cases against
+    their plain versions, every channel present: exactly one live source
+    block; a live block that some target blocks hold no tile for; and
+    live tiles of 1-3 spiking columns whose rows straddle several 32-row
+    staging units, batches and both windows of 128 source blocks.  (Every
     block live is test_kernels_match_plain's "all".)"""
     rng = np.random.default_rng(9)
     if case == "missing_tiles":
@@ -273,22 +292,58 @@ def test_fused_kernel_live_list_cases(cuda, case, fx):
         s = np.zeros(n, bool)
         s[[260, 300, 383]] = True
     else:
-        c = synthetic_flywire(1800, seed=2)
+        c = synthetic_flywire(17_000 if case == "straddling_units" else 1800,
+                              seed=2)
         bs = ops.build_blocked(c, None, cuda)
         blk_id, weights, n, n_sb = bs.blk_id, bs.weights, c.n, bs.n_sb
-        s = np.zeros(n, bool)
-        s[[700, 701, 767]] = True
+        if case == "straddling_units":
+            s = straddle_spikes(rng, n)
+        else:
+            s = np.zeros(n, bool)
+            s[[700, 701, 767]] = True
     spk, nspk = ops.pad_spike_blocks(torch.from_numpy(s).to(cuda), n, n_sb)
-    assert int((nspk > 0).sum()) == 1
-    state, stim = _rows(blk_id.shape[0], fx, rng, cuda)
-    kw = dict(params=P, fixed_point=fx)
+    if case == "straddling_units":
+        rows = nspk[blk_id.long()].sum(dim=1)
+        assert n_sb > 128 and int(nspk.max()) <= 3
+        assert int(rows.min()) > 2 * 32
+    else:
+        assert int((nspk > 0).sum()) == 1
     K.reset_launches()
-    a = K.fused_deliver_lif(blk_id, weights, spk, nspk, *state, *stim, **kw)
-    b = K.fused_deliver_lif_plain(blk_id, weights, spk, nspk, *state, *stim,
-                                  **kw)
+    if kernel == "spike_deliver":
+        a = (K.spike_deliver_tiles(blk_id, weights, spk, nspk),)
+        b = (K.spike_deliver_plain(blk_id, weights, spk, nspk),)
+    else:
+        state, stim = _rows(blk_id.shape[0], fx, rng, cuda)
+        kw = dict(params=P, fixed_point=fx)
+        a = K.fused_deliver_lif(blk_id, weights, spk, nspk, *state, *stim,
+                                **kw)
+        b = K.fused_deliver_lif_plain(blk_id, weights, spk, nspk, *state,
+                                      *stim, **kw)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["fused_deliver_lif"] == 1
+    assert K.LAUNCHES[kernel] == 1
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_misaligned_weights(cuda):
+    """The kernels copy tile rows 16 bytes at a time: a store whose
+    weights do not start on 16 bytes is refused, not read wrong."""
+    c = synthetic_flywire(700, seed=1)
+    bs = ops.build_blocked(c, None, cuda)
+    flat = torch.empty(bs.weights.numel() + 1, dtype=torch.int16,
+                       device=cuda)
+    weights = flat[1:].view(bs.weights.shape)
+    weights.copy_(bs.weights)
+    spk, nspk = ops.pad_spike_blocks(torch.ones(c.n, dtype=torch.bool,
+                                                device=cuda), c.n, bs.n_sb)
+    state, _ = _rows(bs.n_tb, False, np.random.default_rng(0), cuda)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.spike_deliver_tiles(bs.blk_id, weights, spk, nspk)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.fused_deliver_lif(bs.blk_id, weights, spk, nspk, *state, params=P,
+                            fixed_point=False)
+    assert K.LAUNCHES == {"spike_deliver": 0, "fused_deliver_lif": 0}
 
 
 @pytest.mark.cuda

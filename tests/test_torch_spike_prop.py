@@ -25,7 +25,7 @@ from repro_torch.exp.stimulus import StimDrive
 from repro_torch.kernels.spike_prop import kernel as K
 from repro_torch.kernels.spike_prop import ops
 
-from test_torch_cuda import missing_tile_store
+from test_torch_cuda import missing_tile_store, straddle_spikes
 
 ACTIVITY = {"silent": 0.0, "sparse": 0.02, "all": 1.0}
 CHANNELS = [(g, v, f) for g in (0, 1) for v in (0, 1) for f in (0, 1)]
@@ -117,6 +117,37 @@ def test_plain_fused_matches_pallas(store, fx, channels, activity):
                                                        bs.n, bs.n_sb),
         _t(v), _t(g), _t(refrac), *(_t(x) for x in stim), params=P,
         fixed_point=fx)
+    for a, b in zip(want, got):
+        _same(a, b.numpy())
+
+
+@pytest.mark.parametrize("kernel,fx", [("deliver", None), ("fused", False),
+                                       ("fused", True)],
+                         ids=["deliver", "fused-f32", "fused-q19_12"])
+def test_plain_versions_match_pallas_with_straddling_units(store, kernel,
+                                                           fx):
+    """The spike pattern of the card's unit-straddling case (1-3 spiking
+    columns in every source block): both plain versions, bitwise against
+    the Pallas kernels."""
+    c, bs, pbs = store
+    s = straddle_spikes(np.random.default_rng(4), c.n)
+    per_block = np.add.reduceat(s, np.arange(0, c.n, 128))
+    assert per_block.min() >= 1 and per_block.max() <= 3
+    spk, nspk = ref_ops.pad_spike_blocks(jnp.asarray(s), bs.n, bs.n_sb)
+    pspk, pnspk = ops.pad_spike_blocks(torch.from_numpy(s), bs.n, bs.n_sb)
+    if kernel == "deliver":
+        want = [ref_kernel.spike_deliver_pallas(
+            jnp.asarray(bs.blk_id), jnp.asarray(bs.weights), spk, nspk,
+            interpret=True)]
+        got = [K.spike_deliver_plain(pbs.blk_id, pbs.weights, pspk, pnspk)]
+    else:
+        (v, g, refrac), stim = _rows(bs.blk_id.shape[0], fx, seed=5)
+        want = ref_kernel.fused_deliver_lif_pallas(
+            jnp.asarray(bs.blk_id), jnp.asarray(bs.weights), spk, v, g,
+            refrac, *stim, params=RP, fixed_point=fx, interpret=True)
+        got = K.fused_deliver_lif_plain(
+            pbs.blk_id, pbs.weights, pspk, pnspk, _t(v), _t(g), _t(refrac),
+            *(_t(x) for x in stim), params=P, fixed_point=fx)
     for a, b in zip(want, got):
         _same(a, b.numpy())
 
