@@ -7,12 +7,18 @@ CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``src/repro_torch`` with nvcc and holds each
-kernel against its plain PyTorch version, then drives three paths:
+kernel against its plain PyTorch version, then drives four paths:
 
 * ``simulate()`` on the full synthetic FlyWire network (139,255 neurons,
   15M synapses, the paper's Q19.12 configuration with 9-bit weights,
   ``sugar_feeding``) through the ``blocked_fused`` and ``blocked``
-  engines, checked bitwise against the ``csr`` engine on the same card;
+  engines and ``CONFIG.sim`` as it is (the ``event`` engine), checked
+  bitwise against the ``csr`` engine on the same card;
+* ``simulate_distributed()`` on the same network cut into 12 partitions
+  as the JAX package's CLI cuts it, emulated on the card, through the
+  ``bitmap``, ``event`` and ``blocked`` exchange schemes (the last also
+  with the fused kernel), checked bitwise against each other, with every
+  partition's kernel output held against its plain version;
 * the LIF kernels' entry points (``kernels.lif.lif_update`` and
   ``lif_update_fx``) for 1,000 steps at FlyWire size, checked bitwise
   against their plain versions;
@@ -23,10 +29,11 @@ kernel against its plain PyTorch version, then drives three paths:
   weights.
 
 Both delivery kernels are also timed on the full FlyWire store with
-0.1%, 1% and every neuron spiking.  Every phase raises on failure;
-nothing is caught.  The last lines are a JSON line of those activity
-cases, a JSON line of kernel measurements, the card's name and power
-limit, and ``{"ok": true, "device": ...}``.
+0.1%, 1% and every neuron spiking, beside the ``torch.sparse`` CSR
+product of the same spikes.  Every phase raises on failure; nothing is
+caught.  The last lines are a JSON line of those activity cases, a JSON
+line of kernel measurements, the card's name and power limit, and
+``{"ok": true, "device": ...}``.
 
 It imports PyTorch, numpy and the port (``src/repro_torch``), and nothing
 of JAX.
@@ -51,6 +58,15 @@ N_KERNEL_CHECK = 20_000
 T_MAIN = 1_000
 T_OTHER = 200
 T_LIF = 1_000
+P_DIST = 12                     # the paper's chip count, emulated on one card
+T_DIST = 200
+T_DIST_F32 = 50
+T_DIST_TRACE = 10
+# label: (exchange scheme, sim engine); "blocked_fused" is the blocked
+# scheme with the fused kernel
+DIST_RUNS = {"bitmap": ("bitmap", None), "event": ("event", None),
+             "blocked": ("blocked", None),
+             "blocked_fused": ("blocked", "blocked_fused")}
 ACTIVITY = (0.001, 0.01, 1.0)   # fractions of the neurons spiking a step
 # 9 resident blocks of 128 threads an SM: 65,536 / (9 x 128) registers a
 # thread, rounded down to the allocation's multiple of 8; 19,216 B of
@@ -512,7 +528,36 @@ def phase_main(c, cfg, stim):
           f"{int(live.max())}; spiking columns read/step mean "
           f"{float(cols.double().mean()):.1f}; peak device memory "
           f"{peak:.3f} GB", flush=True)
-    return syn, fused, ms_fused, ms_csr, launches
+    return syn, fused, ref, ms_fused, ms_csr, launches
+
+
+@phase("the paper's configuration as it is (CONFIG.sim, engine event)")
+def phase_event_config(c, stim, ref):
+    """``CONFIG.sim`` unmodified (the ``event`` engine, Q19.12, 9-bit
+    weights) for T_MAIN steps of the main path's stimulus and seed; counts,
+    state, dropped and raster bitwise equal to the main path's csr run,
+    with nothing dropped."""
+    import torch
+    from repro_torch.configs.flywire import CONFIG
+    from repro_torch.core import build_synapses
+    from repro_torch.exp import ProbeSpec
+    check(CONFIG.sim.engine == "event", "CONFIG.sim names another engine")
+    t0 = time.perf_counter()
+    syn = build_synapses(c, CONFIG.sim)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    res, ms, _ = run_engine(c, CONFIG.sim, T_MAIN, stim, syn,
+                            ProbeSpec(raster=True), "CONFIG.sim (event) Q19.12")
+    check(same_result(res, ref), "CONFIG.sim (event) != csr (counts, state or "
+          "dropped) at full size")
+    check(torch.equal(res.raster, ref.raster), "event raster differs from csr")
+    check(int(res.dropped) == 0, f"the event engine dropped {int(res.dropped)} "
+          f"synapse events")
+    print(f"CONFIG.sim as it is: event engine {ms:.4f} ms/step over {T_MAIN} "
+          f"steps (state built in {t_build:.3f} s; capacity "
+          f"{CONFIG.sim.capacity}); bitwise equal to csr, dropped 0",
+          flush=True)
+    return ms
 
 
 @phase("trace of the main path (torch.profiler)")
@@ -572,17 +617,18 @@ def sparse_matrix(c, cfg, device):
         torch.from_numpy(w), size=(c.n, c.n)).to(device)
 
 
-def delivery_bytes(syn, refs, spk, nspk, state_bytes):
-    """The spiking columns read, and the bytes a delivery call must move
-    for these spikes: nspk, the live source blocks' spike entries, the slot
-    of every (live source block, target block) pair (4 B each, what a slot
-    index would hold; the kernel's binary search reads more, a 32-byte
-    sector a probe), one 256-byte int16 tile row for every spiking column
-    of a stored tile, and `state_bytes` of state in and out.  `refs[b]` is
-    the number of target blocks that hold a tile of source block b."""
-    n_tb = syn.blk_id.shape[0]
-    n_live = int((nspk[:syn.n_sb] > 0).sum())
-    cols = int((spk[:syn.n_sb].sum(1).long() * refs).sum())
+def delivery_bytes(blk_id, n_sb, refs, spk, nspk, state_bytes):
+    """The spiking columns read, and the bytes a delivery call on the
+    store with rows ``blk_id`` [n_tb, E] must move for these spikes: nspk,
+    the live source blocks' spike entries, the slot of every (live source
+    block, target block) pair (4 B each, what a slot index would hold; the
+    kernel's binary search reads more, a 32-byte sector a probe), one
+    256-byte int16 tile row for every spiking column of a stored tile, and
+    `state_bytes` of state in and out.  `refs[b]` is the number of target
+    blocks that hold a tile of source block b."""
+    n_tb = blk_id.shape[0]
+    n_live = int((nspk[:n_sb] > 0).sum())
+    cols = int((spk[:n_sb].sum(1).long() * refs).sum())
     nbytes = (nspk.numel() * 4 + n_live * 128 * 4 + n_live * n_tb * 4
               + cols * 128 * 2 + state_bytes)
     return cols, nbytes
@@ -616,8 +662,10 @@ def phase_yardstick(c, cfg, syn, fused_res, smi):
     refs = torch.bincount(syn.blk_id.reshape(-1).long(),
                           minlength=syn.n_sb + 1)[:syn.n_sb]
     live_tiles = int(((nspk[:syn.n_sb] > 0).long() * refs).sum())
-    cols, deliver_bytes = delivery_bytes(syn, refs, spk, nspk, rows * 4)
-    _, fused_bytes = delivery_bytes(syn, refs, spk, nspk, rows * 4 * 7)
+    cols, deliver_bytes = delivery_bytes(syn.blk_id, syn.n_sb, refs, spk,
+                                         nspk, rows * 4)
+    _, fused_bytes = delivery_bytes(syn.blk_id, syn.n_sb, refs, spk, nspk,
+                                    rows * 4 * 7)
 
     kw = dict(params=p, fixed_point=fx)
     a = K.spike_deliver_tiles(syn.blk_id, syn.weights, spk, nspk)
@@ -667,9 +715,9 @@ def phase_yardstick(c, cfg, syn, fused_res, smi):
           f"profiler), wrapper {call_f:.5f} ms/call back to back (CUDA "
           f"events), plain {plain_f:.3f} ms, bound {bound_f:.5f} ms "
           f"({fused_bytes} B)", flush=True)
-    del A
     activity = [row for frac in ACTIVITY for row in activity_case(
-        syn, refs, frac, (v, g, refrac), kw, smi)]
+        syn, refs, frac, (v, g, refrac), kw, smi, A)]
+    del A
     return ({"spike_deliver": (ms_d, plain_d, bound_d, lib_ms, err_d),
              "fused_deliver_lif": (ms_f, plain_f, bound_f, None, err_f)},
             activity)
@@ -687,11 +735,14 @@ def timed(fn, match: str) -> tuple[float, str]:
     return kernel_device_ms(fn, 200, match), "profiler device time"
 
 
-def activity_case(syn, refs, frac, state, kw, smi):
+def activity_case(syn, refs, frac, state, kw, smi, A):
     """Both delivery kernels on the full store with a fraction ``frac`` of
     the neurons spiking (Bernoulli draws from numpy seed 0; 1.0 is every
     neuron): each bitwise against its plain version once, then timed
-    beside its byte bound (`delivery_bytes`, counted for these spikes)."""
+    beside its byte bound (`delivery_bytes`, counted for these spikes);
+    `spike_deliver` also beside the library call on the same spikes, the
+    torch.sparse CSR product ``A @ s`` (CUDA events, 5 calls; its result
+    must equal the kernel's)."""
     import numpy as np
     import torch
     from repro_torch.kernels.spike_prop import kernel as K
@@ -717,16 +768,29 @@ def activity_case(syn, refs, frac, state, kw, smi):
               f"neurons spiking on the full store: max |err| {err}")
         del a, b
         ms, how = timed(fn, f"{name}_kernel")
-        cols, nbytes = delivery_bytes(syn, refs, spk, nspk, state_bytes)
+        cols, nbytes = delivery_bytes(syn.blk_id, syn.n_sb, refs, spk, nspk,
+                                      state_bytes)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        lib_ms, lib_note = None, ""
+        if name == "spike_deliver":
+            s_col = torch.from_numpy(s).to(DEVICE).to(torch.float32)[:, None]
+            lib = (A @ s_col).reshape(-1)
+            out_k = K.spike_deliver_tiles(*store).reshape(-1)[:syn.n]
+            check(torch.equal(lib, out_k), f"torch.sparse CSR product != "
+                  f"delivery kernel with {frac:.1%} spiking")
+            lib_ms = cuda_ms(lambda: A @ s_col, 5, warmup=1)
+            lib_note = (f"; torch.sparse CSR mv {lib_ms:.5f} ms (CUDA "
+                        f"events), the kernel {lib_ms / ms:.2f}x as fast")
+            del lib, out_k
         print(f"{name} with {frac:.1%} spiking ({int(s.sum())} neurons, "
               f"{int((nspk[:syn.n_sb] > 0).sum())} live source blocks, "
               f"{cols} spiking columns of stored tiles): {ms:.5f} ms/call "
               f"({how}), bound {bound:.5f} ms ({nbytes} B), "
-              f"{ms / bound:.2f}x the bound; bitwise equal to plain; card "
-              f"{smi}", flush=True)
+              f"{ms / bound:.2f}x the bound{lib_note}; bitwise equal to "
+              f"plain; card {smi}", flush=True)
         out.append({"kernel": name, "spiking": frac, "ms": ms,
-                    "timed_by": how, "bound_ms": bound, "max_abs_err": err})
+                    "timed_by": how, "bound_ms": bound, "library_ms": lib_ms,
+                    "max_abs_err": err})
     return out
 
 
@@ -1098,9 +1162,263 @@ def phase_lm(smi):
     return n_flash
 
 
+def dist_run(d, sim, scheme, t_steps, stim, probes, label):
+    """One simulate_distributed() run with the launch counts zeroed just
+    before and read just after; returns (result, ms per step, launches)."""
+    import torch
+    from repro_torch.core import DistConfig, simulate_distributed
+    from repro_torch.kernels.spike_prop import kernel as K
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = simulate_distributed(d, DistConfig(sim=sim, scheme=scheme),
+                               t_steps, seed=0, stimulus=stim, probes=probes)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / t_steps
+    launches = dict(K.LAUNCHES)
+    stats = {k: int(v) for k, v in res.stats.items()}
+    print(f"{label}: {ms:.4f} ms/step over {t_steps} steps at P = "
+          f"{d.n_parts}, {int(res.counts.sum())} spikes, dropped "
+          f"{res.dropped}, stats {stats}, launches {launches}", flush=True)
+    return res, ms, launches
+
+
+def same_dist(a, b) -> bool:
+    import torch
+    return (torch.equal(a.counts, b.counts) and a.dropped == b.dropped
+            and all(torch.equal(x, y) for x, y in zip(a.state, b.state)))
+
+
+def partition_csr(d, p, device):
+    """Partition p's synapses as a torch.sparse CSR matrix [U, P*U] (the
+    library yardstick of one partition's delivery)."""
+    import numpy as np
+    import torch
+    n_glob = d.n_parts * d.part_size
+    ok = d.syn_src[p] < n_glob
+    idx = torch.from_numpy(np.stack([d.syn_tgt_local[p][ok],
+                                     d.syn_src[p][ok]]).astype(np.int64))
+    A = torch.sparse_coo_tensor(idx, torch.from_numpy(d.syn_w[p][ok]),
+                                (d.part_size, n_glob)).coalesce()
+    return A.to_sparse_csr().to(device)
+
+
+def sharded_kernels(d, state, res, cfg, smi):
+    """Both kernels on every partition's slab of the sharded store, at the
+    gathered spikes of the run's busiest step, each bitwise against its
+    plain version (tolerance 0); the fused one on the run's final LIF
+    state.  Then both timed on the slab with the most live tiles, beside
+    their byte bounds (`delivery_bytes` for that slab), the plain versions
+    and, for `spike_deliver`, the partition's torch.sparse CSR product."""
+    import torch
+    from repro_torch.core.exchange.blocked import event_spike_blocks
+    from repro_torch.kernels.spike_prop import kernel as K
+    from repro_torch.kernels.spike_prop.ops import pad_spike_blocks
+    P_, U, n_sb = d.n_parts, d.part_size, state.n_sb
+    n_glob = P_ * U
+    perm = torch.from_numpy(d.perm).to(DEVICE)
+    t = int(res.raster.sum(dim=1).argmax())
+    glob = torch.zeros(n_glob, dtype=torch.bool, device=DEVICE)
+    glob[perm] = res.raster[t]
+    spk, nspk = pad_spike_blocks(glob, n_glob, n_sb)
+    ev_spk, ev_nspk = event_spike_blocks(
+        torch.nonzero(glob).flatten().to(torch.int32), n_glob, n_sb)
+    check(torch.equal(spk, ev_spk) and torch.equal(nspk, ev_nspk),
+          "the gathered events give other spike blocks")
+
+    def rows(x):
+        full = torch.zeros(n_glob, dtype=x.dtype, device=DEVICE)
+        full[perm] = x
+        return [torch.nn.functional.pad(full[q * U:(q + 1) * U],
+                                        (0, state.blk_id.shape[1] * 128 - U)
+                                        ).reshape(-1, 128)
+                for q in range(P_)]
+    lif = [rows(x) for x in res.state]
+    kw = dict(params=cfg.params, fixed_point=cfg.fixed_point)
+    err = {"spike_deliver": 0.0, "fused_deliver_lif": 0.0}
+    live = []
+    for q in range(P_):
+        store = (state.blk_id[q], state.weights[q], spk, nspk)
+        a, b = K.spike_deliver_tiles(*store), K.spike_deliver_plain(*store)
+        fa = K.fused_deliver_lif(*store, lif[0][q], lif[1][q], lif[2][q], **kw)
+        fb = K.fused_deliver_lif_plain(*store, lif[0][q], lif[1][q],
+                                       lif[2][q], **kw)
+        torch.cuda.synchronize()
+        err["spike_deliver"] = max(err["spike_deliver"], max_abs_err(a, b))
+        err["fused_deliver_lif"] = max(err["fused_deliver_lif"], max(
+            max_abs_err(x, y) for x, y in zip(fa, fb)))
+        check(torch.equal(a, b), f"spike_deliver != plain on partition {q}")
+        check(equal_all(fa, fb), f"fused_deliver_lif != plain on partition "
+              f"{q}")
+        refs = torch.bincount(state.blk_id[q].reshape(-1).long(),
+                              minlength=n_sb + 1)[:n_sb]
+        live.append(int(((nspk[:n_sb] > 0).long() * refs).sum()))
+        del a, b, fa, fb
+    q = max(range(P_), key=lambda i: live[i])
+    store = (state.blk_id[q], state.weights[q], spk, nspk)
+    st = (lif[0][q], lif[1][q], lif[2][q])
+    refs = torch.bincount(state.blk_id[q].reshape(-1).long(),
+                          minlength=n_sb + 1)[:n_sb]
+    n_rows = st[0].numel()
+    cols, d_bytes = delivery_bytes(state.blk_id[q], n_sb, refs, spk, nspk,
+                                   n_rows * 4)
+    _, f_bytes = delivery_bytes(state.blk_id[q], n_sb, refs, spk, nspk,
+                                n_rows * 4 * 7)
+    ms_d = kernel_device_ms(lambda: K.spike_deliver_tiles(*store), 200,
+                            "spike_deliver_kernel")
+    ms_f = kernel_device_ms(lambda: K.fused_deliver_lif(*store, *st, **kw),
+                            200, "fused_deliver_lif_kernel")
+    plain_d = cuda_ms(lambda: K.spike_deliver_plain(*store), 2, warmup=1)
+    plain_f = cuda_ms(lambda: K.fused_deliver_lif_plain(*store, *st, **kw), 2,
+                      warmup=1)
+    A = partition_csr(d, q, DEVICE)
+    s_col = glob.to(torch.float32)[:, None]
+    check(torch.equal((A @ s_col).reshape(-1),
+                      K.spike_deliver_tiles(*store).reshape(-1)[:U]),
+          "torch.sparse CSR product != delivery kernel on the slab")
+    lib_ms = cuda_ms(lambda: A @ s_col, 50)
+    del A
+    bound_d = d_bytes / HBM_BYTES_PER_S * 1e3
+    bound_f = f_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"sharded store, step {t} of the bitmap run ({int(glob.sum())} "
+          f"spikes gathered, {int((nspk[:n_sb] > 0).sum())} live source "
+          f"blocks): all {P_} partitions' kernels bitwise equal to plain; "
+          f"live tiles per partition {live}; card {smi}", flush=True)
+    print(f"spike_deliver on partition {q}'s slab ({live[q]} live tiles, "
+          f"{cols} spiking columns): {ms_d:.5f} ms/launch (device time, "
+          f"profiler), plain {plain_d:.3f} ms, torch.sparse CSR mv "
+          f"{lib_ms:.5f} ms, bound {bound_d:.5f} ms ({d_bytes} B)",
+          flush=True)
+    print(f"fused_deliver_lif on partition {q}'s slab: {ms_f:.5f} ms/launch "
+          f"(device time, profiler), plain {plain_f:.3f} ms, bound "
+          f"{bound_f:.5f} ms ({f_bytes} B)", flush=True)
+    return {"spike_deliver": (ms_d, plain_d, bound_d, lib_ms,
+                              err["spike_deliver"]),
+            "fused_deliver_lif": (ms_f, plain_f, bound_f, None,
+                                  err["fused_deliver_lif"])}
+
+
+@phase("partitioned simulator, P = 12, full FlyWire (Q19.12)")
+def phase_distributed(c, stim, smi):
+    """The paper's partitioned mapping, its 12 partitions emulated on the
+    card: partitioned as the JAX package's CLI does (greedy SAR under
+    CoreBudget.tpu_vmem(), pad_to_uniform to 12, build_dcsr with 9-bit
+    weights); ``shard_stimulus`` of the main path's stimulus; T_DIST steps
+    of each of DIST_RUNS, which must agree bitwise (counts, state,
+    dropped, raster; the blocked pair also in tile counters), the blocked
+    runs launching their kernel once per partition and step.  Then the
+    kernels on every partition's slab, a profiled window of
+    ``blocked_fused``, and a float32 cross-check."""
+    import gc
+
+    import torch
+    from repro_torch.configs.flywire import CONFIG
+    from repro_torch.core import (DistConfig, build_dcsr, edge_cut,
+                                  greedy_partition, pad_to_uniform,
+                                  simulate_distributed)
+    from repro_torch.core.compress import CoreBudget
+    from repro_torch.core.exchange import build_dist_arrays, get_scheme
+    from repro_torch.core.partition import caps_from_budget
+    from repro_torch.exp import ProbeSpec
+    cfg = CONFIG.sim
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    greedy = greedy_partition(c, caps_from_budget(CoreBudget.tpu_vmem(),
+                                                  "sar"), scheme="sar")
+    d = build_dcsr(c, pad_to_uniform(greedy, P_DIST, c.n),
+                   quantize_bits=cfg.quantize_bits)
+    t_dcsr = time.perf_counter() - t0
+    sizes = d.cum_neurons[1:] - d.cum_neurons[:-1]
+    print(f"DCSR: greedy SAR gave {greedy.n_parts} parts (cuts "
+          f"{greedy.offsets.tolist()}), re-cut to {d.n_parts} of "
+          f"{sizes.min()}-{sizes.max()} neurons; U = {d.part_size}, S_max "
+          f"= {d.s_max}, weights [{d.syn_w.min():.0f}, {d.syn_w.max():.0f}]"
+          f"; edge cut {json.dumps(edge_cut(d))}; {t_dcsr:.3f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    build_dist_arrays(d, DEVICE)
+    torch.cuda.synchronize()
+    t_arrays = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = get_scheme("blocked").build(d, cfg, DistConfig(sim=cfg).capacity,
+                                        DEVICE)
+    torch.cuda.synchronize()
+    t_store = time.perf_counter() - t0
+    gb = state.weights.numel() * state.weights.element_size() / 1e9
+    print(f"sharded tile store: [P, n_tb, E] = {list(state.blk_id.shape)}, "
+          f"n_sb {state.n_sb}, {state.tiles_stored} tiles, occupancy "
+          f"{state.occupancy:.6f}, int16 {gb:.3f} GB; set-up: DCSR "
+          f"{t_dcsr:.3f} s, dist arrays {t_arrays:.3f} s, sharded store "
+          f"{t_store:.3f} s", flush=True)
+
+    probes = ProbeSpec(raster=True)
+    runs = {}
+    for label, (scheme, engine) in DIST_RUNS.items():
+        sim = cfg if engine is None else dataclasses.replace(cfg,
+                                                             engine=engine)
+        runs[label] = dist_run(d, sim, scheme, T_DIST, stim, probes,
+                               f"{label} Q19.12")
+    base = runs["bitmap"][0]
+    check(int(base.counts.sum()) > 0, "the partitioned run never spiked")
+    for label, (res, _, _) in runs.items():
+        check(same_dist(res, base) and torch.equal(res.raster, base.raster),
+              f"{label} != bitmap (counts, state, dropped or raster) at P = "
+              f"{P_DIST}")
+    bl, bf = runs["blocked"][0].stats, runs["blocked_fused"][0].stats
+    check(all(int(bl[k]) == int(bf[k]) for k in ("tiles_live",
+                                                 "tiles_skipped")),
+          f"tile counters differ: {bl} vs {bf}")
+    launches = {"spike_deliver": runs["blocked"][2]["spike_deliver"],
+                "fused_deliver_lif": runs["blocked_fused"][2][
+                    "fused_deliver_lif"]}
+    want = P_DIST * T_DIST
+    check(launches == {"spike_deliver": want, "fused_deliver_lif": want}
+          and runs["blocked"][2]["fused_deliver_lif"] == 0
+          and runs["blocked_fused"][2]["spike_deliver"] == 0,
+          f"sharded launches {launches}, expected {want} of each kernel "
+          f"in its own run only")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 80.0, f"peak device memory {peak:.3f} GB")
+    ms = {label: r[1] for label, r in runs.items()}
+    yard = sharded_kernels(d, state, base, cfg, smi)
+    del runs, bl, bf
+
+    fused_sim = dataclasses.replace(cfg, engine="blocked_fused")
+    wall_ms, kernels = device_profile(lambda: simulate_distributed(
+        d, DistConfig(sim=fused_sim, scheme="blocked"), T_DIST_TRACE, seed=1,
+        stimulus=stim, probes=ProbeSpec()))
+    per_step = None if kernels is None else {
+        k: (v / T_DIST_TRACE, n / T_DIST_TRACE)
+        for k, (v, n) in kernels.items()}
+    print_breakdown(f"blocked_fused at P = {P_DIST}, trace over "
+                    f"{T_DIST_TRACE} steps, per step", wall_ms / T_DIST_TRACE,
+                    per_step, top=6)
+
+    f32 = dataclasses.replace(cfg, fixed_point=False)
+    a, _, _ = dist_run(d, f32, "bitmap", T_DIST_F32, stim, probes,
+                       "bitmap float32")
+    b, _, lf = dist_run(d, dataclasses.replace(f32, engine="blocked_fused"),
+                        "blocked", T_DIST_F32, stim, probes,
+                        "blocked_fused float32")
+    check(lf["fused_deliver_lif"] == P_DIST * T_DIST_F32, "fused f32 launches")
+    check(same_dist(a, b) and torch.equal(a.raster, b.raster),
+          f"blocked_fused float32 != bitmap float32 at P = {P_DIST}")
+    rounded = {k: round(v, 4) for k, v in ms.items()}
+    print(f"P = {P_DIST}: ms/step {json.dumps(rounded)}; all four schemes "
+          f"bitwise equal in Q19.12, "
+          f"blocked_fused == bitmap in float32; {int(base.counts.sum())} "
+          f"spikes in {T_DIST} steps; launches {launches}; peak device "
+          f"memory {peak:.3f} GB; card {smi}", flush=True)
+    del a, b, base, state, d, greedy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return yard, launches, ms
+
+
 def flywire_section(smi):
-    """The simulate() phases at full FlyWire size; returns the kernel
-    numbers of the two spike_prop kernels and frees the card."""
+    """The simulate() phases at full FlyWire size, then the P = 12
+    simulate_distributed() phase; returns the kernel numbers of the two
+    spike_prop kernels on both paths and frees the card."""
     import gc
 
     import torch
@@ -1115,21 +1433,32 @@ def flywire_section(smi):
     cfg = dataclasses.replace(CONFIG.sim, engine="blocked_fused")
     stim = build_scenario("sugar_feeding", c, cfg, n_sugar=CONFIG.n_sugar,
                           rate_hz=CONFIG.sugar_rate_hz)
-    syn, fused, ms_fused, ms_csr, main_launches = phase_main(c, cfg, stim)
+    syn, fused, ref, ms_fused, ms_csr, main_launches = phase_main(c, cfg, stim)
+    ms_event = phase_event_config(c, stim, ref)
+    del ref
     phase_trace(c, cfg, stim, syn)
     other_launches = phase_other(c, cfg, stim, syn)
     yard, activity = phase_yardstick(c, cfg, syn, fused, smi)
     launches = {"spike_deliver": other_launches["spike_deliver"],
                 "fused_deliver_lif": main_launches["fused_deliver_lif"]}
-    del syn, fused, stim, c
+    del syn, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    check(left < 1.0, f"{left:.3f} GB still allocated after the monolithic "
+          f"FlyWire phases")
+    sharded, sharded_launches, ms_dist = phase_distributed(c, stim, smi)
+    del stim, c
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated() / 1e9
     check(left < 1.0, f"{left:.3f} GB still allocated after the FlyWire "
           f"phases")
     print(f"FlyWire phases: blocked_fused {ms_fused:.4f} ms/step, csr "
-          f"{ms_csr:.4f} ms/step; {left:.3f} GB left allocated", flush=True)
-    return yard, activity, launches
+          f"{ms_csr:.4f} ms/step, CONFIG.sim (event) {ms_event:.4f} ms/step; "
+          f"P = {P_DIST} ms/step {json.dumps(ms_dist)}; {left:.3f} GB left "
+          f"allocated", flush=True)
+    return yard, activity, launches, sharded, sharded_launches
 
 
 
@@ -1147,7 +1476,7 @@ def main() -> int:
     check_err.update(phase_lif_check())
     check_err["flash_attention"] = phase_flash_check()
 
-    yard, activity, launches = flywire_section(smi)
+    yard, activity, launches, sharded, sharded_launches = flywire_section(smi)
     lif_yard, lif_ms_step = phase_lif_path(smi)
     for name, (ms, plain_ms, bound, lib_ms, err, n) in lif_yard.items():
         yard[name] = (ms, plain_ms, bound, lib_ms, err)
@@ -1175,7 +1504,17 @@ def main() -> int:
             "bound_by": "operations" if name == "flash_attention"
             else "bytes",
             "library_ms": lib_ms, "held_against_plain": True})
-    check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
+        if name in sharded:
+            # the same kernel on the partitioned path: one launch per
+            # partition and step of the blocked / blocked_fused run
+            s_ms, s_plain, s_bound, s_lib, s_err = sharded[name]
+            kernels[-1]["sharded_p12"] = {
+                "launches": sharded_launches[name], "ms": s_ms,
+                "plain_ms": s_plain, "bound_ms": s_bound,
+                "library_ms": s_lib, "max_abs_err": s_err}
+    check(all(k["launches"] > 0 for k in kernels)
+          and all(k["sharded_p12"]["launches"] > 0 for k in kernels
+                  if "sharded_p12" in k), "a kernel never launched")
     print(f"total {time.perf_counter() - t_all:.3f} s; LIF entry points "
           f"{json.dumps({k: round(v, 5) for k, v in lif_ms_step.items()})} "
           f"ms/step", flush=True)

@@ -1,8 +1,8 @@
 """flywire — the paper's own workload: the FlyWire connectome LIF network
 (139,255 neurons / ~15M condensed synapses) with the sugar-neuron
-experiment.  Counterpart of ``repro/configs/flywire.py``; the configured
-engine is the reference's (``event``, not ported yet), so a run of the
-port names its engine with ``dataclasses.replace(CONFIG.sim, engine=...)``.
+experiment.  Counterpart of ``repro/configs/flywire.py``: ``CONFIG.sim``
+(the ``event`` engine, Q19.12, 9-bit weights) runs in the port as it is.
+The 1 ms variant ``CONFIG_1MS`` is not carried over.
 """
 
 from __future__ import annotations

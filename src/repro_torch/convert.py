@@ -18,6 +18,8 @@ from repro_torch.core.connectome import Connectome
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.engines.blocked import BlockedState
 from repro_torch.core.engines.csr import CsrState
+from repro_torch.core.exchange.arrays import DistArrays
+from repro_torch.core.exchange.blocked import ShardedBlockedState
 from repro_torch.core.neuron import LIFState
 from repro_torch.core.step import SimCarry
 from repro_torch.kernels.spike_prop.ops import check_row_order
@@ -37,24 +39,57 @@ def connectome_from_jax(c) -> Connectome:
                                      for k in _CONNECTOME_ARRAYS})
 
 
+def _tiles_from_jax(state, device):
+    """A reference store's ``blk_id`` and float32 ``[..., tgt, src]``
+    tiles as the kernels' int32 ids and int16 ``[..., src, tgt]`` tiles,
+    checked: integer weights within int16, rows in ``check_row_order``."""
+    w = np.asarray(state.weights)
+    w16 = w.astype(np.int16)
+    if not np.array_equal(w16.astype(w.dtype), w):
+        raise ValueError("tile weights are not integers within int16")
+    blk_id = np.asarray(state.blk_id).astype(np.int32)
+    check_row_order(blk_id, int(state.n_sb))
+    return blk_id, _t(blk_id, device), _t(np.swapaxes(w16, -1, -2), device)
+
+
 def blocked_from_jax(state, device=None) -> BlockedState:
     """A reference ``BlockedState`` (or ``BlockedSynapses``) as the port's:
     the float32 ``[tb, e, tgt, src]`` tiles become int16 ``[tb, e, src,
     tgt]``, the layout the kernels read.  Raises ``ValueError`` unless
     every weight is an integer within int16 and every ``blk_id`` row is
     ascending with its pad slots last (``check_row_order``)."""
-    w = np.asarray(state.weights)
-    w16 = w.astype(np.int16)
-    if not np.array_equal(w16.astype(w.dtype), w):
-        raise ValueError("tile weights are not integers within int16")
-    blk_id = np.asarray(state.blk_id).astype(np.int32)
+    blk_id, ids, weights = _tiles_from_jax(state, device)
     n_sb = int(state.n_sb)
-    check_row_order(blk_id, n_sb)
     return BlockedState(
-        blk_id=_t(blk_id, device), weights=_t(w16.transpose(0, 1, 3, 2),
-                                              device),
-        n=int(state.n), n_sb=n_sb, occupancy=float(state.occupancy),
+        blk_id=ids, weights=weights, n=int(state.n), n_sb=n_sb,
+        occupancy=float(state.occupancy),
         tiles_stored=int((blk_id < n_sb).sum()))
+
+
+def sharded_blocked_from_jax(state, device=None) -> ShardedBlockedState:
+    """A reference ``ShardedBlockedState`` (the ``blocked`` scheme's) as
+    the port's: float32 ``[P, tb, e, tgt, src]`` tiles become int16 ``[P,
+    tb, e, src, tgt]``, checked as :func:`blocked_from_jax` checks."""
+    blk_id, ids, weights = _tiles_from_jax(state, device)
+    n_sb = int(state.n_sb)
+    return ShardedBlockedState(
+        blk_id=ids, weights=weights,
+        src_gfo=_t(state.src_gfo, device, np.int32), n_sb=n_sb,
+        tiles_stored=int((blk_id < n_sb).sum()),
+        occupancy=float(state.occupancy))
+
+
+_DIST_DTYPES = {"syn_src": np.int32, "syn_tgt": np.int32,
+                "syn_w": np.float32, "out_indptr": np.int32,
+                "out_tgt": np.int32, "out_w": np.float32,
+                "pad_mask": np.bool_, "src_gfo": np.int32}
+
+
+def dist_arrays_from_jax(arrs, device=None) -> DistArrays:
+    """A reference ``DistArrays`` (the ``bitmap``/``event`` schemes'
+    stores) as the port's."""
+    return DistArrays(**{k: _t(getattr(arrs, k), device, dt)
+                         for k, dt in _DIST_DTYPES.items()})
 
 
 def csr_from_jax(state, device=None) -> CsrState:
@@ -136,4 +171,5 @@ def lm_params_from_jax(params, cfg, device=None):
 
 
 __all__ = ["blocked_from_jax", "carry_from_jax", "connectome_from_jax",
-           "csr_from_jax", "lm_params_from_jax"]
+           "csr_from_jax", "dist_arrays_from_jax", "lm_params_from_jax",
+           "sharded_blocked_from_jax"]

@@ -1,9 +1,9 @@
 """One capacity vocabulary for every event-driven path.
 
-Copy of the parts of ``repro/core/capacity.py`` that ``SimConfig``
-carries.  No ported engine reads the budgets yet (the ``event`` engine,
-which does, is still to be ported); they are kept so that a configuration
-means the same thing in both packages.
+Copy of the parts of ``repro/core/capacity.py`` that ``SimConfig`` and
+``DistConfig`` carry: the monolithic ``event`` engine and the partitioned
+``event`` and ``blocked`` exchange schemes read the budgets.
+``escalate_capacity`` belongs to the supervision layer, not ported yet.
 """
 
 from __future__ import annotations
@@ -16,10 +16,11 @@ import warnings
 class CapacityConfig:
     """Joint static-shape provisioning for the event-driven paths.
 
-    ``spike_capacity`` (K) bounds active neurons per step, ``syn_budget``
-    (S_cap) bounds delivered synapses per step, ``block_capacity`` (B_cap)
-    bounds active 128-blocks in the hierarchical compaction (0 = derive
-    from K).  Overruns are counted (``dropped``), never silent.
+    ``spike_capacity`` (K) bounds active neurons per step (per partition
+    on the partitioned path), ``syn_budget`` (S_cap) bounds delivered
+    synapses per step, ``block_capacity`` (B_cap) bounds active 128-blocks
+    in the hierarchical compaction (0 = derive from K).  Overruns are
+    counted (``dropped``), never silent.
     """
 
     spike_capacity: int = 512
@@ -27,8 +28,9 @@ class CapacityConfig:
     block_capacity: int = 0
 
 
-#: Historical per-config default, preserved through the deprecation shims.
+#: Historical per-config defaults, preserved through the deprecation shims.
 MONOLITHIC_CAPACITY = CapacityConfig()
+DISTRIBUTED_CAPACITY = CapacityConfig(spike_capacity=256, syn_budget=32_768)
 
 
 def merge_legacy_capacity(capacity: CapacityConfig | None,
@@ -55,4 +57,5 @@ def merge_legacy_capacity(capacity: CapacityConfig | None,
     return cap
 
 
-__all__ = ["CapacityConfig", "MONOLITHIC_CAPACITY", "merge_legacy_capacity"]
+__all__ = ["CapacityConfig", "DISTRIBUTED_CAPACITY", "MONOLITHIC_CAPACITY",
+           "merge_legacy_capacity"]

@@ -1,0 +1,288 @@
+"""Partitioned multi-core SNN simulation (paper §3.2.2-3.2.3), emulated.
+
+Counterpart of ``repro/core/distributed.py``.  A DCSR snapshot's P
+partitions each run the step of :mod:`repro_torch.core.step` through a
+registered exchange scheme (``bitmap``, ``event`` or ``blocked``); the
+only contact between partitions is the scheme's collective.
+
+The reference runs the partitions as one program, vmapped with a named
+axis on one device (``emulate=True``) or sharded over a device mesh.
+Here ``emulate=True`` runs them on one device, one after another: each
+step, every partition's exchange half, then the emulated ``all_gather``
+of their contributions in partition order, then every partition's rest
+of the step (:func:`_run_emulated`).  The PRNG streams are per partition
+and independent, so the order of the partitions changes no result.  The
+real multi-device path (``emulate=False``, ``torch.distributed`` over
+several GPUs) is not ported: it raises ``NotImplementedError``, as do
+the reference's supervision features (``chunk_steps``, checkpoints,
+``sim.health``).
+
+Records and counts come back in original neuron ids through ``inv_perm``;
+pad neurons never spike (the step's pad mask) and never appear in any
+record or count.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import random as prng
+from repro_torch.tree import map_tensors
+
+from .capacity import DISTRIBUTED_CAPACITY, CapacityConfig, merge_legacy_capacity
+from .dcsr import DCSR
+from .engine import SimConfig, resolve_device
+from .exchange import Topology, all_gather, get_scheme
+from .neuron import LIFState, init_state
+from .step import SimCarry, step_exchange, step_finish
+
+AXIS = "cores"
+
+
+@dataclasses.dataclass(frozen=True)
+class DistConfig:
+    sim: SimConfig
+    scheme: str = "event"        # see repro_torch.core.exchange
+    # Deprecated capacity shims -> capacity (CapacityConfig)
+    spike_capacity: Optional[int] = None
+    syn_budget: Optional[int] = None
+    block_capacity: Optional[int] = None
+    capacity: Optional[CapacityConfig] = None
+
+    def __post_init__(self):
+        cap = merge_legacy_capacity(
+            self.capacity, self.spike_capacity, self.syn_budget,
+            self.block_capacity, DISTRIBUTED_CAPACITY, "DistConfig")
+        object.__setattr__(self, "capacity", cap)
+        for f in ("spike_capacity", "syn_budget", "block_capacity"):
+            object.__setattr__(self, f, None)
+
+
+class DistResult(NamedTuple):
+    """``SimResult``-shaped result in original neuron ids."""
+    counts: torch.Tensor          # [n_orig] int64 spike counts
+    dropped: int
+    state: LIFState               # leaves [n_orig]
+    raster: torch.Tensor | None   # [T, n_orig] (iff the raster probe is on)
+    records: dict                 # ProbeSpec records, leading axis T
+    stats: dict                   # scheme counters (blocked: tiles_*)
+
+
+def make_core_mesh(n_cores: int, devices=None):
+    raise NotImplementedError(
+        "the multi-device path (one partition per GPU over "
+        "torch.distributed) is not ported; use emulate=True")
+
+
+def _resolve_dist_stimulus(d: DCSR, sc: SimConfig, sugar_neurons, stimulus):
+    from repro_torch.exp.stimulus import legacy_stimulus, shard_stimulus
+    if stimulus is None:
+        if sugar_neurons is not None:
+            warnings.warn(
+                "sugar_neurons= is deprecated; pass stimulus= instead "
+                "(e.g. repro_torch.exp.PoissonDrive(mask=...) or "
+                "legacy_stimulus(cfg, n, sugar_idx, masked=True))",
+                DeprecationWarning, stacklevel=4)
+        stimulus = legacy_stimulus(sc, d.n_orig, sugar_idx=sugar_neurons,
+                                   masked=True)
+    elif sugar_neurons is not None:
+        raise ValueError(
+            "pass either sugar_neurons (legacy drive) or stimulus, "
+            "not both — an explicit stimulus ignores sugar_neurons")
+    return shard_stimulus(stimulus, d)
+
+
+def _resolve_dist_probes(d: DCSR, sc: SimConfig, probes):
+    """The probe spec, and the per-partition voltage-row remap:
+    ``rows[p, i]`` is probe id i's local row on partition p (0 where p
+    does not own it; the assembly keeps the owner's trace)."""
+    if probes is None:
+        from repro_torch.exp.probes import ProbeSpec
+        probes = ProbeSpec(raster=sc.collect_raster)
+    P_, U = d.n_parts, d.part_size
+    ids = np.asarray(probes.voltage, dtype=np.int64)
+    bad = ids[(ids < 0) | (ids >= d.n_orig)]
+    if bad.size:
+        raise ValueError(f"voltage probe ids {bad.tolist()} out of range "
+                         f"for n={d.n_orig}")
+    gid = d.perm[ids] if ids.size else ids
+    owner, local = gid // U, gid % U
+    rows = np.where(owner[None, :] == np.arange(P_)[:, None], local[None, :],
+                    0)                                      # [P, n_probe]
+    return probes, rows, owner.astype(np.int64)
+
+
+def _init_dist_carry(d: DCSR, cfg: DistConfig, stim, scheme, keys,
+                     device) -> list[SimCarry]:
+    """One carry per partition; ``keys`` is [P, 2]."""
+    P_, U = d.n_parts, d.part_size
+    sc = cfg.sim
+    lif0 = init_state(P_ * U, sc.params, sc.fixed_point, device=device)
+    carries = []
+    for p in range(P_):
+        carries.append(SimCarry(
+            lif=LIFState(*(x.reshape(P_, U)[p] for x in lif0)),
+            ring=torch.zeros((sc.params.delay_steps, U), dtype=torch.bool,
+                             device=device),
+            ptr=0, key=keys[p],
+            counts=torch.zeros(U, dtype=torch.int32, device=device),
+            dropped=torch.zeros((), dtype=torch.int32, device=device),
+            stim=stim.init_state(U),
+            stats={k: torch.zeros((), dtype=torch.int32, device=device)
+                   for k in scheme.init_stats()}))
+    return carries
+
+
+def _run_emulated(scheme, states, carries, stims, pads, vrows,
+                  cfg: DistConfig, probes, t_steps: int, topo: Topology,
+                  partitionable: bool):
+    """The partitions' steps on one device: per step, every partition's
+    exchange half, the emulated all_gather, every partition's finish.
+    Returns the final carries and each partition's records, ``[T, ...]``
+    per name."""
+    P_ = len(carries)
+    topos = [topo._replace(index=p) for p in range(P_)]
+    common = dict(scheme=scheme, cap=cfg.capacity, partitionable=partitionable)
+    records: list[dict[str, list]] = [{} for _ in range(P_)]
+    for t in range(t_steps):
+        exs = [step_exchange(carries[p], state=states[p], stim=stims[p],
+                             topo=topos[p], **common) for p in range(P_)]
+        gathered = all_gather([ex.sent for ex in exs])
+        for p in range(P_):
+            carries[p], rec = step_finish(
+                carries[p], exs[p], gathered, t, state=states[p],
+                stim=stims[p], sim=cfg.sim, topo=topos[p], probes=probes,
+                pad_mask=pads[p], voltage_rows=vrows[p], **common)
+            for k, v in rec.items():
+                records[p].setdefault(k, []).append(v)
+    return carries, [{k: torch.stack(v) for k, v in r.items()}
+                     for r in records]
+
+
+def _to_orig(d: DCSR, arr: torch.Tensor, dtype=None) -> torch.Tensor:
+    """[P, *mid, U] partition-stacked -> [*mid, n_orig] in original ids;
+    pad slots are dropped."""
+    mid = tuple(arr.shape[1:-1])
+    flat = torch.movedim(arr, 0, -2).reshape(mid + (d.n_parts * d.part_size,))
+    out = torch.zeros(mid + (d.n_orig,), dtype=dtype or arr.dtype,
+                      device=arr.device)
+    valid = d.inv_perm >= 0
+    src = torch.from_numpy(np.flatnonzero(valid)).to(arr.device)
+    dst = torch.from_numpy(d.inv_perm[valid]).to(arr.device)
+    out[..., dst] = flat[..., src].to(out.dtype)
+    return out
+
+
+def _assemble_records(d: DCSR, records: list[dict], owner) -> dict:
+    """Per-partition records -> records in original neuron ids."""
+    out = {}
+    for name in records[0] if records else ():
+        arr = torch.stack([r[name] for r in records])      # [P, T, ...]
+        if name == "raster":
+            out[name] = _to_orig(d, arr)
+        elif name == "v":
+            # every partition traced every probe id against its own rows;
+            # keep the owning partition's trace per id
+            out[name] = torch.stack(
+                [arr[int(owner[i]), ..., i] for i in range(arr.shape[-1])],
+                dim=-1)
+        elif name == "pop_rate_hz":
+            # per-partition mean over U (pads included) -> the mean over
+            # the n_orig real neurons, in float64 as the reference's host
+            # code does it
+            out[name] = arr.double().sum(dim=0) * (d.part_size / d.n_orig)
+        else:                                   # "dropped" and the rest
+            out[name] = arr.sum(dim=0)
+    return out
+
+
+def _assemble(d: DCSR, carries: list[SimCarry], records: list[dict],
+              owner) -> DistResult:
+    """The partitions' final carries and records -> a DistResult in
+    original neuron ids."""
+    counts = _to_orig(d, torch.stack([c.counts for c in carries]),
+                      dtype=torch.int64)
+    lif = LIFState(*(_to_orig(d, torch.stack(x)) for x in
+                     zip(*(c.lif for c in carries))))
+    recs = _assemble_records(d, records, owner)
+    stats = {k: torch.stack([c.stats[k] for c in carries]).sum()
+             for k in carries[0].stats}
+    dropped = int(torch.stack([c.dropped for c in carries]).sum())
+    return DistResult(counts=counts, dropped=dropped, state=lif,
+                      raster=recs.get("raster"), records=recs, stats=stats)
+
+
+def simulate_distributed(
+    d: DCSR,
+    cfg: DistConfig,
+    t_steps: int,
+    sugar_neurons: np.ndarray | None = None,
+    seed: int = 0,
+    mesh: Any = None,
+    emulate: bool = True,
+    stimulus=None,
+    probes=None,
+    chunk_steps: Optional[int] = None,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+    async_checkpoint: bool = False,
+    *,
+    device=None,
+    partitionable: bool = True,
+) -> DistResult:
+    """Run the partitioned network, its partitions emulated on one device.
+
+    ``cfg.scheme`` selects a registered exchange scheme other than
+    ``local``.  ``stimulus`` is a stateless stimulus of
+    :mod:`repro_torch.exp` addressed in original neuron ids (sharded onto
+    the partitioning here; default: the legacy masked drive from
+    ``cfg.sim`` and ``sugar_neurons``); ``probes`` a ``ProbeSpec``, whose
+    records come back in original ids as :func:`simulate`'s do.
+    ``device`` defaults to CUDA and raises without it; ``partitionable``
+    is the threefry mode of ``seed``'s stream.  Each partition's key is
+    ``split(PRNGKey(seed), P)[p]``, as in the reference.
+    """
+    if not emulate or mesh is not None:
+        make_core_mesh(d.n_parts)
+    if (chunk_steps is not None or checkpoint_dir is not None or resume
+            or async_checkpoint):
+        raise NotImplementedError(
+            "chunk_steps, checkpoint_dir, resume and async_checkpoint are "
+            "not ported to PyTorch yet")
+    if cfg.sim.health is not None:
+        raise NotImplementedError("SimConfig.health is not ported yet")
+    if cfg.scheme == "local":
+        raise ValueError("the 'local' scheme is the monolithic simulate(); "
+                         "pick a partitioned exchange scheme")
+    scheme = get_scheme(cfg.scheme)
+    device = resolve_device(device)
+    P_, U = d.n_parts, d.part_size
+
+    state = scheme.build(d, cfg.sim, cfg.capacity, device)
+    stim = _resolve_dist_stimulus(d, cfg.sim, sugar_neurons,
+                                  stimulus).to(device)
+    probes, rows, owner = _resolve_dist_probes(d, cfg.sim, probes)
+    pad = torch.from_numpy(d.inv_perm.reshape(P_, U) >= 0).to(device)
+    rows = torch.from_numpy(rows).to(device)
+    keys = prng.split(prng.PRNGKey(seed, device=device), P_,
+                      partitionable=partitionable)
+    carries = _init_dist_carry(d, cfg, stim, scheme, keys, device)
+
+    def part(x, p):
+        return map_tensors(lambda a: a[p], x)
+    carries, records = _run_emulated(
+        scheme, [part(state, p) for p in range(P_)], carries,
+        [part(stim, p) for p in range(P_)], pad,
+        rows if probes.voltage else [None] * P_, cfg, probes, t_steps,
+        Topology(P_, U, axis=AXIS), partitionable)
+
+    return _assemble(d, carries, records, owner)
+
+
+__all__ = ["AXIS", "DistConfig", "DistResult", "make_core_mesh",
+           "simulate_distributed"]

@@ -22,7 +22,7 @@ import torch
 from ..connectome import Connectome
 
 #: Engines of ``repro.core.engines`` that this package does not have yet.
-NOT_PORTED = ("binned", "dense", "ell", "event")
+NOT_PORTED = ("binned", "dense", "ell")
 
 
 @runtime_checkable

@@ -1,9 +1,34 @@
-"""Exchange-scheme registry.  Ported: ``local`` (the P=1 scheme of the
-monolithic ``simulate()``)."""
+"""Exchange-scheme registry: one module per partition-communication strategy.
 
-from .base import (NOT_PORTED, ExchangeScheme, Topology, available_schemes,
-                   get_scheme, register_scheme)
-from . import local  # noqa: F401 (register)
+======== ==================================================================
+local    degenerate P=1 scheme (no collective): the delivery-engine
+         registry; the monolithic ``simulate()`` path
+bitmap   all-gather of the per-partition spike bitmap (fixed volume,
+         delivery follows the local nnz)
+event    all-gather of K-slot compacted active-id lists (volume follows
+         activity, delivery bounded by the synapse budget)
+blocked  sharded int16 tile store: event exchange across the cut, the
+         tile-gated delivery kernel inside each partition; with
+         ``sim.engine="blocked_fused"`` the fused delivery->LIF kernel
+======== ==================================================================
 
-__all__ = ["ExchangeScheme", "NOT_PORTED", "Topology", "available_schemes",
-           "get_scheme", "register_scheme"]
+The reference's fault-injecting ``faulty`` wrapper is not ported yet.
+"""
+
+from .base import (NOT_PORTED, ExchangeScheme, Topology, all_gather,
+                   available_schemes, get_scheme, memoized_build,
+                   register_scheme)
+from .arrays import DistArrays, build_dist_arrays, build_src_gfo
+from . import bitmap, blocked, event, local  # noqa: F401 (register)
+from .bitmap import BitmapExchange
+from .blocked import BlockedExchange, ShardedBlockedState
+from .event import EventExchange, gather_active_events
+from .local import LocalExchange
+
+__all__ = [
+    "ExchangeScheme", "NOT_PORTED", "Topology", "all_gather",
+    "available_schemes", "get_scheme", "memoized_build", "register_scheme",
+    "DistArrays", "build_dist_arrays", "build_src_gfo",
+    "BitmapExchange", "BlockedExchange", "EventExchange", "LocalExchange",
+    "ShardedBlockedState", "gather_active_events",
+]

@@ -1,21 +1,34 @@
-"""Exchange-scheme protocol and registry.
+"""Exchange-scheme protocol, registry and build memoization.
 
 Counterpart of ``repro/core/exchange/base.py``.  An *exchange scheme*
 moves spikes between partitions and turns them into each partition's
-local drive.  Per step the step body (:mod:`repro_torch.core.step`) calls
-``exchange`` and then ``deliver`` (or, when ``fuses_lif(sim)``,
-``deliver_fused``, which also integrates).  The monolithic simulation is
-the P=1 ``local`` scheme.  The reference's partitioned schemes
-(``bitmap``, ``event``, ``blocked``, ``faulty``) are not ported yet;
-asking for them raises ``NotImplementedError``.
+local drive.  The monolithic simulation is the P=1 ``local`` scheme.
+
+The reference's ``exchange`` runs its collective (``all_gather`` over a
+named axis) itself, inside a step that is vmapped or sharded over the
+partitions.  Here a step of a partition is plain code, so the collective
+is lifted out of the scheme: ``exchange`` returns ``(sent, kept)``, the
+tensor this partition contributes to the collective and what it keeps for
+itself; the caller gathers every partition's ``sent`` with
+:func:`all_gather` (partition order, as ``all_gather`` lays them out) and
+hands ``(gathered, kept)`` to ``deliver`` (or, when ``fuses_lif(sim)``,
+to ``deliver_fused``, which also integrates).  ``Topology.index`` is this
+partition's place on the axis, which the reference reads with
+``axis_index``.
+
+The ``faulty`` wrapper scheme is not ported yet; asking for it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, NamedTuple, Protocol, runtime_checkable
 
+import torch
+
 #: Schemes of ``repro.core.exchange`` that this package does not have yet.
-NOT_PORTED = ("bitmap", "blocked", "event", "faulty")
+NOT_PORTED = ("faulty",)
 
 
 class Topology(NamedTuple):
@@ -24,6 +37,7 @@ class Topology(NamedTuple):
     n_parts: int          # P
     part_size: int        # U: local neuron slots (n itself when P == 1)
     axis: str | None      # collective axis name (None for ``local``)
+    index: int = 0        # this partition's index on the axis
 
     @property
     def n_global(self) -> int:
@@ -39,16 +53,24 @@ class ExchangeScheme(Protocol):
     def build(self, source: Any, sim, cap, device) -> Any:
         ...
 
-    def exchange(self, state: Any, delayed, cap, topo: Topology) -> Any:
+    def exchange(self, state: Any, delayed, cap, topo: Topology
+                 ) -> tuple[torch.Tensor, Any]:
+        """Local delayed spikes [U] -> (sent, kept)."""
         ...
 
     def deliver(self, state: Any, payload: Any, delayed, sim, cap,
                 topo: Topology):
-        """Payload -> (g_units [U] f32, dropped i32, stats dict)."""
+        """(gathered, kept) -> (g_units [U] f32, dropped i32, stats dict)."""
         ...
 
     def init_stats(self) -> dict:
         return {}
+
+
+def all_gather(sent: list[torch.Tensor]) -> torch.Tensor:
+    """The emulated collective: every partition's contribution, in
+    partition order, along the first axis (one partition: its own)."""
+    return sent[0] if len(sent) == 1 else torch.cat(sent)
 
 
 _REGISTRY: dict[str, ExchangeScheme] = {}
@@ -77,5 +99,27 @@ def available_schemes() -> list[str]:
     return sorted(_REGISTRY)
 
 
-__all__ = ["ExchangeScheme", "NOT_PORTED", "Topology", "available_schemes",
-           "get_scheme", "register_scheme"]
+_BUILD_CACHE: dict[tuple[int, str], tuple] = {}
+
+
+def memoized_build(source: Any, key: str, build_fn):
+    """Memoize a build on the identity of ``source`` (a DCSR snapshot,
+    immutable): the result is kept while ``source`` lives and evicted when
+    it is garbage-collected.  Device-resident results name their device
+    in ``key``."""
+    k = (id(source), key)
+    hit = _BUILD_CACHE.get(k)
+    if hit is not None and hit[0]() is source:
+        return hit[1]
+    out = build_fn()
+    try:
+        ref = weakref.ref(source, lambda _r, k=k: _BUILD_CACHE.pop(k, None))
+    except TypeError:
+        return out
+    _BUILD_CACHE[k] = (ref, out)
+    return out
+
+
+__all__ = ["ExchangeScheme", "NOT_PORTED", "Topology", "all_gather",
+           "available_schemes", "get_scheme", "memoized_build",
+           "register_scheme"]

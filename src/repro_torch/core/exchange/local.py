@@ -1,7 +1,8 @@
 """Local scheme: the degenerate P=1 exchange (no collectives).
 
-Every neuron lives on one partition, so the exchange is the identity and
-delivery is whatever the registered delivery engine does.
+Every neuron lives on one partition, so the exchange sends the delayed
+spikes to itself and delivery is whatever the registered delivery engine
+does.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ class LocalExchange:
         return {}
 
     def exchange(self, state, delayed, cap, topo: Topology):
-        return delayed
+        return delayed, None
 
     def deliver(self, state, payload, delayed, sim, cap, topo: Topology):
         from ..engines import get_engine
-        g, drop = get_engine(sim.engine).deliver(state, payload, sim)
+        g, drop = get_engine(sim.engine).deliver(state, payload[0], sim)
         return g, drop, {}
 
     # -- fused-integration capability: delegated to the engine registry --
@@ -38,5 +39,5 @@ class LocalExchange:
                       topo: Topology):
         from ..engines import get_engine
         new_lif, spikes, drop = get_engine(sim.engine).deliver_fused(
-            state, payload, lif, drive, sim)
+            state, payload[0], lif, drive, sim)
         return new_lif, spikes, drop, {}

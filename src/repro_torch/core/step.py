@@ -1,15 +1,23 @@
 """The simulation step (paper §3.2.2-3.2.3), and the loop over steps.
 
 Counterpart of ``repro/core/step.py``: ring-buffer delayed-spike readout,
-spike exchange/delivery, stimulus step, LIF integration, counters and
-probe collection, through a registered exchange scheme.  A scheme whose
-delivery already integrates (``engine="blocked_fused"``) reports
-``fuses_lif(sim)`` and the step calls its ``deliver_fused`` instead of
-``deliver`` + ``apply_drive``, so the LIF update runs exactly once.
+spike exchange/delivery, stimulus step, LIF integration, pad masking,
+counters and probe collection, through a registered exchange scheme.  A
+scheme whose delivery already integrates (``engine="blocked_fused"``)
+reports ``fuses_lif(sim)`` and the step calls its ``deliver_fused``
+instead of ``deliver`` + ``apply_drive``, so the LIF update runs exactly
+once.
 
-Where the reference scans with ``lax.scan`` over an immutable carry,
-:func:`scan_steps` is a Python loop; it copies the ring buffer once and
-then updates it in place every step.
+The reference vmaps (or shards) its step over the partitions, so its
+collective sees every partition at once.  Here the step of one partition
+is split around the collective: :func:`step_exchange` (key split, delayed
+read, the scheme's local exchange), then the caller's
+:func:`~repro_torch.core.exchange.base.all_gather` of every partition's
+contribution, then :func:`step_finish` (the rest).  :func:`sim_step` is
+the one-partition composition, which :func:`scan_steps` loops; the
+partitioned runner (:mod:`repro_torch.core.distributed`) drives the two
+halves itself.  Where the reference scans over an immutable carry, the
+loop copies the ring buffer once and then updates it in place every step.
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ import torch
 
 from repro_torch import random as prng
 
-from .exchange.base import ExchangeScheme, Topology
+from .exchange.base import ExchangeScheme, Topology, all_gather
 from .neuron import LIFState
 
 
@@ -30,48 +38,82 @@ def _scheme_fuses_lif(scheme: ExchangeScheme, sim) -> bool:
 
 
 class SimCarry(NamedTuple):
-    """Loop carry (leaves are [n]-shaped tensors on the run's device)."""
+    """Loop carry of one partition (leaves are [U]-shaped tensors on the
+    run's device; U = n when P = 1)."""
     lif: LIFState
-    ring: torch.Tensor     # [D, n] bool delayed-spike ring buffer
+    ring: torch.Tensor     # [D, U] bool delayed-spike ring buffer
     ptr: int               # ring slot read (then written) this step
     key: torch.Tensor      # [2] int64: the two uint32 words of a JAX key
-    counts: torch.Tensor   # [n] int32 spike counts
+    counts: torch.Tensor   # [U] int32 spike counts
     dropped: torch.Tensor  # scalar int32 total dropped synapse events
     stim: Any              # stimulus state (() for stateless stimuli)
     stats: dict            # scheme stats counters (scheme.init_stats())
 
 
-def sim_step(carry: SimCarry, t: int, *, scheme: ExchangeScheme, state, stim,
-             sim, cap, topo: Topology, probes, partitionable: bool = True,
-             voltage_rows=None) -> tuple[SimCarry, dict]:
-    """One simulation step.  Writes this step's spikes into ``carry.ring``
-    in place (the slot it has just read) and returns the new carry and
-    this step's probe records."""
-    from repro_torch.exp.stimulus import apply_drive, n_split
-    p = sim.params
+class Exchanged(NamedTuple):
+    """What :func:`step_exchange` leaves for :func:`step_finish`."""
+    keys: torch.Tensor     # [n_split, 2] this step's key split
+    delayed: torch.Tensor  # [U] bool spikes delivered this step
+    sent: torch.Tensor     # this partition's part of the collective
+    kept: Any              # what the scheme keeps for its deliver
+
+
+def step_exchange(carry: SimCarry, *, scheme: ExchangeScheme, state, stim,
+                  cap, topo: Topology, partitionable: bool = True
+                  ) -> Exchanged:
+    """The half of a step before the collective."""
+    from repro_torch.exp.stimulus import n_split
     keys = prng.split(carry.key, n_split(stim), partitionable=partitionable)
     delayed = carry.ring[carry.ptr]
+    sent, kept = scheme.exchange(state, delayed, cap, topo)
+    return Exchanged(keys, delayed, sent, kept)
 
-    payload = scheme.exchange(state, delayed, cap, topo)
-    sstate, drive = stim.step(carry.stim, keys[1:], t, topo.part_size, p,
+
+def step_finish(carry: SimCarry, ex: Exchanged, gathered: torch.Tensor,
+                t: int, *, scheme: ExchangeScheme, state, stim, sim, cap,
+                topo: Topology, probes, partitionable: bool = True,
+                pad_mask=None, voltage_rows=None) -> tuple[SimCarry, dict]:
+    """The half of a step after the collective.  Writes this step's spikes
+    into ``carry.ring`` in place (the slot just read) and returns the new
+    carry and this step's probe records.  ``pad_mask`` ([U] bool, True
+    for real neurons) keeps a padded partition's pad slots silent."""
+    from repro_torch.exp.stimulus import apply_drive
+    p = sim.params
+    payload = (gathered, ex.kept)
+    sstate, drive = stim.step(carry.stim, ex.keys[1:], t, topo.part_size, p,
                               partitionable=partitionable)
     if _scheme_fuses_lif(scheme, sim):
         lif, spikes, drop, stats = scheme.deliver_fused(
-            state, payload, delayed, carry.lif, drive, sim, cap, topo)
+            state, payload, ex.delayed, carry.lif, drive, sim, cap, topo)
     else:
-        g_units, drop, stats = scheme.deliver(state, payload, delayed, sim,
+        g_units, drop, stats = scheme.deliver(state, payload, ex.delayed, sim,
                                               cap, topo)
         lif, spikes = apply_drive(carry.lif, g_units, drive, p,
                                   sim.fixed_point)
+    if pad_mask is not None:
+        spikes = spikes & pad_mask
 
     carry.ring[carry.ptr] = spikes
     new = SimCarry(
         lif=lif, ring=carry.ring, ptr=(carry.ptr + 1) % p.delay_steps,
-        key=keys[0], counts=carry.counts + spikes.to(torch.int32),
+        key=ex.keys[0], counts=carry.counts + spikes.to(torch.int32),
         dropped=carry.dropped + drop.to(torch.int32), stim=sstate,
         stats={k: carry.stats[k] + stats[k] for k in carry.stats})
     return new, probes.collect(spikes=spikes, lif=lif, drop=drop, params=p,
                                voltage_rows=voltage_rows)
+
+
+def sim_step(carry: SimCarry, t: int, *, scheme: ExchangeScheme, state, stim,
+             sim, cap, topo: Topology, probes, partitionable: bool = True,
+             voltage_rows=None) -> tuple[SimCarry, dict]:
+    """One step of a single partition: both halves, the collective over
+    the one partition in between."""
+    ex = step_exchange(carry, scheme=scheme, state=state, stim=stim, cap=cap,
+                       topo=topo, partitionable=partitionable)
+    return step_finish(carry, ex, all_gather([ex.sent]), t, scheme=scheme,
+                       state=state, stim=stim, sim=sim, cap=cap, topo=topo,
+                       probes=probes, partitionable=partitionable,
+                       voltage_rows=voltage_rows)
 
 
 def scan_steps(scheme: ExchangeScheme, state, carry: SimCarry, stim, sim,
@@ -97,4 +139,5 @@ def scan_steps(scheme: ExchangeScheme, state, carry: SimCarry, stim, sim,
     return carry, {k: torch.stack(v) for k, v in records.items()}
 
 
-__all__ = ["SimCarry", "scan_steps", "sim_step"]
+__all__ = ["Exchanged", "SimCarry", "scan_steps", "sim_step",
+           "step_exchange", "step_finish"]

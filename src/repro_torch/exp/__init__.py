@@ -6,7 +6,8 @@ from .probes import NO_PROBES, ProbeSpec
 from .scenarios import (Scenario, available_scenarios, build_scenario,
                         get_scenario, register_scenario)
 from .stimulus import (SILENT, Background, Compose, PoissonDrive, SkipKey,
-                       StimDrive, apply_drive, legacy_stimulus, n_split)
+                       StimDrive, apply_drive, legacy_stimulus, n_split,
+                       shard_stimulus)
 
 __all__ = [
     "NO_PROBES", "ProbeSpec",
@@ -14,4 +15,5 @@ __all__ = [
     "register_scenario",
     "SILENT", "Background", "Compose", "PoissonDrive", "SkipKey",
     "StimDrive", "apply_drive", "legacy_stimulus", "n_split",
+    "shard_stimulus",
 ]

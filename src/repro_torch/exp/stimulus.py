@@ -16,8 +16,11 @@ RNG contract, as in the reference: the step splits its carry key into
 parts consume them in declaration order.  ``partitionable`` selects the
 threefry mode (see :mod:`repro_torch.random`).
 
-The clocked stimuli (``StepCurrent``, ``PulseTrain``, ``RampDrive``) and
-``shard_stimulus`` are not ported yet.
+Partitioned use: :func:`shard_stimulus` turns a stimulus into its dense
+per-neuron ("masked") form and remaps every per-neuron tensor through a
+DCSR partitioning into partition-stacked ``[P, U]`` tensors (stateless
+stimuli only).  The clocked stimuli (``StepCurrent``, ``PulseTrain``,
+``RampDrive``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from repro_torch import random as prng
 from repro_torch.core.neuron import (LIFParams, f32, f32s, ftz, lif_step,
                                      lif_step_fx, poisson_drive)
+from repro_torch.tree import map_tensors
 
 
 class StimDrive(NamedTuple):
@@ -117,6 +121,16 @@ class PoissonDrive:
         return state, StimDrive(
             g_units=draws.to(torch.float32) * f32s(self.weight))
 
+    def to_masked(self, n: int):
+        """The same drive in masked mode (all n drawn, then masked)."""
+        if self.idx is None:
+            mask = (torch.ones(n, dtype=torch.bool) if self.mask is None
+                    else self.mask)
+        else:
+            mask = torch.zeros(n, dtype=torch.bool, device=self.idx.device)
+            mask[self.idx.long()] = True
+        return dataclasses.replace(self, idx=None, mask=mask)
+
 
 @dataclasses.dataclass(frozen=True)
 class Background:
@@ -139,6 +153,11 @@ class Background:
             keys[0], n, self.rate_hz, p.dt, self.mask,
             partitionable=partitionable))
 
+    def to_masked(self, n: int):
+        mask = (torch.ones(n, dtype=torch.bool) if self.mask is None
+                else self.mask)
+        return dataclasses.replace(self, mask=mask)
+
 
 @dataclasses.dataclass(frozen=True)
 class SkipKey:
@@ -155,6 +174,9 @@ class SkipKey:
 
     def step(self, state, keys, t, n, p, *, partitionable=True):
         return state, StimDrive()
+
+    def to_masked(self, n: int):
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +218,9 @@ class Compose:
                 force = d.force if force is None else force | d.force
         return tuple(new_states), StimDrive(v_mv=v, g_units=g, force=force)
 
+    def to_masked(self, n: int):
+        return Compose(tuple(s.to_masked(n) for s in self.parts))
+
 
 SILENT = Compose(())   # no external drive at all (silent_baseline scenario)
 
@@ -228,5 +253,26 @@ def legacy_stimulus(cfg, n: int, sugar_idx=None, masked: bool = False
     return Compose(tuple(parts))
 
 
+def shard_stimulus(stim, d):
+    """Remap a stimulus onto a DCSR partitioning: its masked form, with
+    every per-neuron tensor ``[..., n]`` made partition-stacked ``[..., P,
+    U]`` through the renumbering (pad neurons get zeros / False)."""
+    dense = stim.to_masked(d.n_orig)
+    P_, U = d.n_parts, d.part_size
+    inv = torch.from_numpy(np.asarray(d.inv_perm))
+    real = inv >= 0
+    safe = torch.where(real, inv, 0)
+
+    def remap(x):
+        if x.dim() == 0 or x.shape[-1] != d.n_orig:
+            return x
+        y = x[..., safe.to(x.device)]
+        out = torch.where(real.to(x.device), y, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+        return out.reshape(x.shape[:-1] + (P_, U))
+    return map_tensors(remap, dense)
+
+
 __all__ = ["Background", "Compose", "PoissonDrive", "SILENT", "SkipKey",
-           "StimDrive", "apply_drive", "legacy_stimulus", "n_split"]
+           "StimDrive", "apply_drive", "legacy_stimulus", "n_split",
+           "shard_stimulus"]

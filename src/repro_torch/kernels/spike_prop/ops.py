@@ -6,7 +6,8 @@ row, target column) index of every synapse is computed in numpy, and the
 weights are scattered into an int16 tensor allocated on the device.  No
 dense tile array is ever made on the host; at full FlyWire size the store
 is 1,088 x 1,088 tiles, 38.8 GB in int16 (77.6 GB in the reference's
-float32).
+float32).  The partitioned store of :func:`build_blocked_sharded` is built
+the same way, all partitions into one allocation.
 """
 
 from __future__ import annotations
@@ -58,22 +59,21 @@ def check_row_order(blk_id: np.ndarray, n_sb: int) -> None:
                          "its pad slots last")
 
 
-def tile_coo(tgt: np.ndarray, src: np.ndarray, w: np.ndarray, n_tb: int,
-             n_sb: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Group a (target, source, weight) COO into blocked-ELL int16 tiles on
-    ``device``: ``(blk_id [n_tb, E] int32, weights [n_tb, E, SRC_BLK,
-    TGT_BLK] int16)``, E being the widest target block's tile count, pad
-    slots pointing at the zero spike block ``n_sb``.  Raises ``ValueError``
-    if a weight does not fit in int16."""
-    w = np.asarray(w)
+def _check_weights(w: np.ndarray) -> None:
     if len(w) and (w.min() < _I16.min or w.max() > _I16.max):
         raise ValueError(f"weights span [{w.min()}, {w.max()}], outside "
                          f"int16: the int16 tile store cannot hold them")
     if not np.array_equal(w, np.round(w)):
         raise ValueError("tile weights must be integers")
-    tgt, src = tgt.astype(np.int64), src.astype(np.int64)
-    tb, sb = tgt // TGT_BLK, src // SRC_BLK
 
+
+def _tile_slots(tgt: np.ndarray, src: np.ndarray, n_tb: int, n_sb: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """The blocked-ELL layout of an int64 (target, source) COO:
+    ``(blk_id [n_tb, E] int32, slot [nnz])``, E being the widest target
+    block's tile count, ``slot`` each synapse's tile slot within its
+    target block's row."""
+    tb, sb = tgt // TGT_BLK, src // SRC_BLK
     pair = tb * n_sb + sb
     order = np.argsort(pair, kind="stable")
     pair_s = pair[order]
@@ -87,16 +87,37 @@ def tile_coo(tgt: np.ndarray, src: np.ndarray, w: np.ndarray, n_tb: int,
         np.concatenate([[0], np.cumsum(tiles_per_tb)[:-1]]), tiles_per_tb)
     blk_id[(uniq_pairs // n_sb).astype(int), slot.astype(int)] = (
         uniq_pairs % n_sb)
-    check_row_order(blk_id, n_sb)
     e_of_pair = np.empty(len(pair), dtype=np.int64)
     e_of_pair[order] = np.repeat(slot, np.diff(
         np.concatenate([first, [len(pair_s)]])))
-    flat = (((tb * E + e_of_pair) * SRC_BLK + src % SRC_BLK) * TGT_BLK
-            + tgt % TGT_BLK)
-    weights = torch.zeros((n_tb, E, SRC_BLK, TGT_BLK), dtype=torch.int16,
-                          device=device)
-    weights.view(-1)[torch.from_numpy(flat).to(device)] = torch.from_numpy(
-        w.astype(np.int16)).to(device)
+    return blk_id, e_of_pair
+
+
+def _scatter_tiles(weights: torch.Tensor, tgt, src, slot, w) -> None:
+    """Write each synapse's weight into its tile of ``weights`` [n_tb, E,
+    SRC_BLK, TGT_BLK] int16 (zero elsewhere)."""
+    E = weights.shape[1]
+    flat = ((((tgt // TGT_BLK) * E + slot) * SRC_BLK + src % SRC_BLK)
+            * TGT_BLK + tgt % TGT_BLK)
+    weights.view(-1)[torch.from_numpy(flat).to(weights.device)] = (
+        torch.from_numpy(np.asarray(w).astype(np.int16)).to(weights.device))
+
+
+def tile_coo(tgt: np.ndarray, src: np.ndarray, w: np.ndarray, n_tb: int,
+             n_sb: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Group a (target, source, weight) COO into blocked-ELL int16 tiles on
+    ``device``: ``(blk_id [n_tb, E] int32, weights [n_tb, E, SRC_BLK,
+    TGT_BLK] int16)``, E being the widest target block's tile count, pad
+    slots pointing at the zero spike block ``n_sb``.  Raises ``ValueError``
+    if a weight does not fit in int16."""
+    w = np.asarray(w)
+    _check_weights(w)
+    tgt, src = tgt.astype(np.int64), src.astype(np.int64)
+    blk_id, slot = _tile_slots(tgt, src, n_tb, n_sb)
+    check_row_order(blk_id, n_sb)
+    weights = torch.zeros((n_tb, blk_id.shape[1], SRC_BLK, TGT_BLK),
+                          dtype=torch.int16, device=device)
+    _scatter_tiles(weights, tgt, src, slot, w)
     return torch.from_numpy(blk_id).to(device), weights
 
 
@@ -116,6 +137,68 @@ def build_blocked(c: Connectome, quantized: np.ndarray | None = None,
     occ = c.nnz / max(1, stored * TGT_BLK * SRC_BLK)
     return BlockedSynapses(blk_id=blk_id, weights=weights, n=n, n_tb=n_tb,
                            n_sb=n_sb, occupancy=float(occ))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedBlockedSynapses:
+    """Per-partition tile stores over a DCSR partitioning.
+
+    Targets are partition-local (rows of partition p's ``U``-slot slab);
+    sources stay global: ``blk_id[p]`` indexes the one ``n_sb``-block
+    global spike space, so every partition gates its tiles against the
+    same gathered spikes.  All partitions share one tile width E, the
+    widest partition's, with pad slots last.
+    """
+
+    blk_id: torch.Tensor    # [P, n_tb, E] int32 global source block
+    weights: torch.Tensor   # [P, n_tb, E, SRC_BLK, TGT_BLK] int16
+    n_tb: int               # local target blocks (ceil U / TGT_BLK)
+    n_sb: int               # global source blocks (ceil P*U / SRC_BLK)
+    occupancy: float        # nnz / stored-tile capacity, all partitions
+
+    @property
+    def tiles_stored(self) -> int:
+        return int((self.blk_id < self.n_sb).sum())
+
+
+def build_blocked_sharded(d, device=None) -> ShardedBlockedSynapses:
+    """The stacked per-partition stores of a DCSR snapshot (weights as
+    ``build_dcsr`` partitioned and quantized them) on ``device`` (default:
+    the CUDA device).  Every partition's tile layout is found first, then
+    the int16 store of all partitions is allocated once at the widest E
+    and each partition's weights are scattered into its slab: nothing is
+    stacked, so the device never holds a second copy (38.97 GB at full
+    FlyWire with P = 12).  Raises ``ValueError`` unless the weights are
+    integers within int16 and every row is ascending with its pads last
+    (``check_row_order``)."""
+    from repro_torch.core.engine import resolve_device
+    device = resolve_device(device)
+    P_, U = d.n_parts, d.part_size
+    n_glob = P_ * U
+    n_tb = (U + TGT_BLK - 1) // TGT_BLK
+    n_sb = (n_glob + SRC_BLK - 1) // SRC_BLK
+    valid = d.syn_src < n_glob
+    _check_weights(d.syn_w[valid])
+    coo = []
+    for p in range(P_):
+        tgt = d.syn_tgt_local[p][valid[p]].astype(np.int64)
+        src = d.syn_src[p][valid[p]].astype(np.int64)
+        blk, slot = _tile_slots(tgt, src, n_tb, n_sb)
+        coo.append((tgt, src, slot, blk))
+    E = max(blk.shape[1] for *_, blk in coo)
+    blk_id = np.full((P_, n_tb, E), n_sb, dtype=np.int32)
+    for p, (*_, blk) in enumerate(coo):
+        blk_id[p, :, :blk.shape[1]] = blk
+    check_row_order(blk_id, n_sb)
+    weights = torch.zeros((P_, n_tb, E, SRC_BLK, TGT_BLK), dtype=torch.int16,
+                          device=device)
+    for p, (tgt, src, slot, _) in enumerate(coo):
+        _scatter_tiles(weights[p], tgt, src, slot, d.syn_w[p][valid[p]])
+    stored = int((blk_id < n_sb).sum())
+    occ = int(valid.sum()) / max(1, stored * TGT_BLK * SRC_BLK)
+    return ShardedBlockedSynapses(
+        blk_id=torch.from_numpy(blk_id).to(device), weights=weights,
+        n_tb=n_tb, n_sb=n_sb, occupancy=float(occ))
 
 
 def spike_blocks(spikes: torch.Tensor, n: int, n_sb: int) -> torch.Tensor:
@@ -186,5 +269,6 @@ def spike_deliver(bs: BlockedSynapses, spikes: torch.Tensor) -> torch.Tensor:
     return out.reshape(-1)[:bs.n]
 
 
-__all__ = ["BlockedSynapses", "build_blocked", "fused_step",
+__all__ = ["BlockedSynapses", "ShardedBlockedSynapses", "build_blocked",
+           "build_blocked_sharded", "check_row_order", "fused_step",
            "pad_spike_blocks", "spike_blocks", "spike_deliver", "tile_coo"]

@@ -6,6 +6,8 @@ imports no JAX, so it also runs on the GPU machine, which has none:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -375,3 +377,78 @@ def test_flash_kernel_ragged_shapes(cuda, B, H, Hkv, Sq, Skv, D, causal,
     if Sq == Skv:
         ref = attention_ref(q, k, v, causal=causal, window=window)
         assert float((out - ref).abs().max()) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_event_engine_matches_csr_on_the_card(cuda):
+    """The ``event`` engine (compaction, bounded gather, index_add_ with
+    atomics) bitwise equal to csr on the card, and to its own CPU run."""
+    c = synthetic_flywire(20_000, seed=2)
+    kw = dict(fixed_point=True, quantize_bits=9, poisson_to_v=False)
+    probes = ProbeSpec(raster=True)
+    out = {}
+    for engine, dev in (("csr", cuda), ("event", cuda), ("event", "cpu")):
+        cfg = SimConfig(engine=engine, **kw)
+        out[engine, str(dev)] = simulate(
+            c, cfg, 200, seed=7, probes=probes, device=dev,
+            stimulus=build_scenario("sugar_feeding", c, cfg,
+                                    background_hz=20.0))
+    ref = out["event", "cpu"]
+    assert int(ref.counts.sum()) > 0 and int(ref.dropped) == 0
+    for r in out.values():
+        assert torch.equal(r.counts.cpu(), ref.counts)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(r.state,
+                                                            ref.state))
+        assert torch.equal(r.raster.cpu(), ref.raster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fx", [False, True], ids=["f32", "q19_12"])
+@pytest.mark.parametrize("n_parts", [4, 3])
+def test_distributed_schemes_agree_on_the_card(cuda, n_parts, fx):
+    """simulate_distributed at n = 20,000 (P = 3 has 16 pad neurons): the
+    bitmap, event, blocked and blocked_fused runs bitwise equal on the
+    card, the blocked ones launching their kernel once per partition and
+    step, and equal to the port's own CPU run (bitmap)."""
+    from repro_torch.core import (DistConfig, build_dcsr, even_partition,
+                                  simulate_distributed)
+    c = synthetic_flywire(20_000, seed=2)
+    d = build_dcsr(c, even_partition(c, n_parts), quantize_bits=9)
+    sim = SimConfig(engine="csr", quantize_bits=9, fixed_point=fx,
+                    poisson_to_v=not fx)
+    stim = build_scenario("sugar_feeding", c, sim, background_hz=20.0)
+    T = 60
+    probes = ProbeSpec(raster=True, pop_rate=True)
+
+    def run(scheme, engine, dev):
+        K.reset_launches()
+        return simulate_distributed(
+            d, DistConfig(sim=dataclasses.replace(sim, engine=engine),
+                          scheme=scheme), T, seed=3, stimulus=stim,
+            probes=probes, device=dev)
+    out = {}
+    for label, scheme, engine in (("bitmap", "bitmap", "csr"),
+                                  ("event", "event", "csr"),
+                                  ("blocked", "blocked", "csr"),
+                                  ("blocked_fused", "blocked",
+                                   "blocked_fused")):
+        out[label] = run(scheme, engine, cuda)
+        torch.cuda.synchronize()
+        want = {"spike_deliver": n_parts * T if label == "blocked" else 0,
+                "fused_deliver_lif": (n_parts * T if label == "blocked_fused"
+                                      else 0)}
+        assert K.LAUNCHES == want, label
+    cpu = run("bitmap", "csr", "cpu")
+    assert int(cpu.counts.sum()) > 0 and cpu.dropped == 0
+    assert out["blocked"].stats["tiles_live"] > 0
+    for k in ("tiles_live", "tiles_skipped"):
+        assert int(out["blocked"].stats[k]) == int(
+            out["blocked_fused"].stats[k])
+    for label, r in out.items():
+        assert torch.equal(r.counts.cpu(), cpu.counts), label
+        assert r.dropped == cpu.dropped, label
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(r.state,
+                                                            cpu.state)), label
+        assert torch.equal(r.raster.cpu(), cpu.raster), label
+        assert torch.equal(r.records["pop_rate_hz"].cpu(),
+                           cpu.records["pop_rate_hz"]), label

@@ -42,7 +42,11 @@ def test_every_module_imports_with_jax_blocked():
                  "repro_torch.models.transformer",
                  "repro_torch.configs.qwen2_5_14b",
                  "repro_torch.obs.jit",
-                 "repro_torch.serving.engine"):
+                 "repro_torch.serving.engine",
+                 "repro_torch.core.compaction",
+                 "repro_torch.core.engines.event",
+                 "repro_torch.core.exchange.blocked",
+                 "repro_torch.core.distributed"):
         assert name in names, name
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

@@ -208,12 +208,12 @@ def test_unported_features_raise(net):
     with pytest.raises(NotImplementedError):
         simulate(pc, SimConfig(health=object()), 5, device="cpu")
     with pytest.raises(NotImplementedError):
-        simulate(pc, SimConfig(engine="event"), 5, device="cpu")
+        simulate(pc, SimConfig(engine="dense"), 5, device="cpu")
     with pytest.raises(ValueError):
         simulate(pc, SimConfig(engine="nope"), 5, device="cpu")
     from repro_torch.core.exchange import get_scheme
     with pytest.raises(NotImplementedError):
-        get_scheme("bitmap")
+        get_scheme("faulty")
     with pytest.raises(NotImplementedError):
         build_scenario("step_response", pc, cfg)
 
