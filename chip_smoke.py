@@ -14,11 +14,19 @@ kernel against its plain PyTorch version, then drives four paths:
   ``sugar_feeding``) through the ``blocked_fused`` and ``blocked``
   engines and ``CONFIG.sim`` as it is (the ``event`` engine), checked
   bitwise against the ``csr`` engine on the same card;
+* ``run_trials()``, the paper's 10-trial statistic, on the same network
+  and stimulus: seeds 0..9 as one batch of 10 lanes through the
+  ``blocked_fused``, ``blocked`` and ``csr`` engines and ``CONFIG.sim``,
+  bitwise equal to each other and lane by lane to ``simulate()`` of each
+  seed, their mean rates at ``core.validate.parity`` rmse 0; timed and
+  profiled at B = 10 beside B = 1;
 * ``simulate_distributed()`` on the same network cut into 12 partitions
   as the JAX package's CLI cuts it, emulated on the card, through the
   ``bitmap``, ``event`` and ``blocked`` exchange schemes (the last also
   with the fused kernel), checked bitwise against each other, with every
-  partition's kernel output held against its plain version;
+  partition's kernel output held against its plain version; and
+  ``run_dist_trials()`` of 3 seeds through the same four, bitwise equal
+  to each other and (``bitmap``) to ``simulate_distributed()`` per seed;
 * the LIF kernels' entry points (``kernels.lif.lif_update`` and
   ``lif_update_fx``) for 1,000 steps at FlyWire size, checked bitwise
   against their plain versions;
@@ -30,10 +38,12 @@ kernel against its plain PyTorch version, then drives four paths:
 
 Both delivery kernels are also timed on the full FlyWire store with
 0.1%, 1% and every neuron spiking, beside the ``torch.sparse`` CSR
-product of the same spikes.  Every phase raises on failure; nothing is
-caught.  The last lines are a JSON line of those activity cases, a JSON
-line of kernel measurements, the card's name and power limit, and
-``{"ok": true, "device": ...}``.
+product of the same spikes, and with B = 10 lanes of spikes in one
+launch (the trials run's, and 0.1% and 1% per lane) beside the CSR
+product with the dense [n, 10] spike matrix.  Every phase raises on
+failure; nothing is caught.  The last lines are a JSON line of those
+activity cases, a JSON line of kernel measurements, the card's name and
+power limit, and ``{"ok": true, "device": ...}``.
 
 It imports PyTorch, numpy and the port (``src/repro_torch``), and nothing
 of JAX.
@@ -62,6 +72,14 @@ P_DIST = 12                     # the paper's chip count, emulated on one card
 T_DIST = 200
 T_DIST_F32 = 50
 T_DIST_TRACE = 10
+T_TRIALS = 1_000
+TRIAL_SEEDS = 10                # the reference's default: the paper's trials
+T_TRIALS_TRACE = 20
+# run_trials engines; "event" is CONFIG.sim as it is
+TRIAL_ENGINES = ("blocked_fused", "blocked", "csr", "event")
+DIST_TRIAL_SEEDS = 3
+T_DIST_TRIALS = 50
+TRIAL_ACTIVITY = (0.001, 0.01)  # per lane, each lane its own draws
 # label: (exchange scheme, sim engine); "blocked_fused" is the blocked
 # scheme with the fused kernel
 DIST_RUNS = {"bitmap": ("bitmap", None), "event": ("event", None),
@@ -794,6 +812,250 @@ def activity_case(syn, refs, frac, state, kw, smi, A):
     return out
 
 
+def trial_run(c, cfg, t_steps, seeds, stim, syn, probes, label):
+    """One run_trials() run with the launch counts zeroed just before and
+    read just after; returns (result, ms per step, launches)."""
+    import torch
+    from repro_torch.exp import run_trials
+    from repro_torch.kernels.spike_prop import kernel as K
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = run_trials(c, cfg, t_steps, seeds=seeds, syn=syn, stimulus=stim,
+                     probes=probes)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / t_steps
+    launches = dict(K.LAUNCHES)
+    print(f"{label}: {ms:.4f} ms/step over {t_steps} steps of "
+          f"{len(res.seeds)} lanes ({ms / len(res.seeds):.4f} ms per "
+          f"trial-step), spikes per lane "
+          f"{res.counts.sum(dim=1).tolist()}, dropped "
+          f"{res.dropped.tolist()}, launches {launches}", flush=True)
+    return res, ms, launches
+
+
+def same_trials(a, b) -> bool:
+    import torch
+    return (torch.equal(a.counts, b.counts)
+            and torch.equal(a.dropped, b.dropped)
+            and all(torch.equal(x, y) for x, y in zip(a.state, b.state)))
+
+
+@phase("trials, B = 10, full FlyWire (Q19.12)")
+def phase_trials(c, cfg, stim, syn, smi):
+    """The paper's 10-trial statistic: ``run_trials`` with seeds 0..9 for
+    T_TRIALS steps through each of TRIAL_ENGINES (``event`` is
+    ``CONFIG.sim`` as it is); counts, LIF state and ``dropped`` bitwise
+    equal across the engines and, lane by lane, to ``simulate()`` of each
+    seed on ``blocked_fused``; ``core/validate.parity`` of the
+    ``blocked_fused`` and ``csr`` mean rates must read rmse 0 and no
+    non-finite rate.  Each blocked engine launches its kernel once a step
+    for all ten lanes.  Then ms/step (host clock) and device busy time a
+    step (profiler, T_TRIALS_TRACE steps) at B = 10 beside B = 1."""
+    import torch
+    from repro_torch.configs.flywire import CONFIG
+    from repro_torch.core import build_synapses, simulate
+    from repro_torch.core.validate import parity
+    from repro_torch.exp import ProbeSpec, run_trials
+    from repro_torch.kernels.spike_prop import kernel as K
+    T, p = T_TRIALS, cfg.params
+    runs = {}
+    for engine in TRIAL_ENGINES:
+        run_cfg = (CONFIG.sim if engine == "event"
+                   else dataclasses.replace(cfg, engine=engine))
+        s = syn if engine.startswith("blocked") else build_synapses(c,
+                                                                    run_cfg)
+        probes = ProbeSpec(raster=engine == "blocked_fused")
+        runs[engine] = trial_run(c, run_cfg, T, TRIAL_SEEDS, stim, s, probes,
+                                 f"run_trials {engine} Q19.12")
+        del s
+        want = {"spike_deliver": T if engine == "blocked" else 0,
+                "fused_deliver_lif": T if engine == "blocked_fused" else 0}
+        check(runs[engine][2] == want, f"run_trials {engine}: launches "
+              f"{runs[engine][2]}, expected {want}: one a step for all "
+              f"{TRIAL_SEEDS} lanes")
+    torch.cuda.empty_cache()
+    fused = runs["blocked_fused"][0]
+    check(all(int(x) > 0 for x in fused.counts.sum(dim=1)),
+          "a lane never spiked")
+    check(not torch.equal(fused.counts[0], fused.counts[1]),
+          "lanes 0 and 1 are the same trial")
+    for engine, (res, _, _) in runs.items():
+        check(same_trials(res, fused), f"run_trials {engine} != "
+              f"blocked_fused (counts, state or dropped)")
+    check(int(fused.dropped.sum()) == 0, "the trials dropped synapse events")
+    single_ms = []
+    for b, seed in enumerate(fused.seeds):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        one = simulate(c, cfg, T, seed=seed, syn=syn, stimulus=stim,
+                       probes=ProbeSpec())
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3 / T)
+        check(K.LAUNCHES["fused_deliver_lif"] == T, "simulate() launches")
+        check(torch.equal(one.counts, fused.counts[b])
+              and torch.equal(one.dropped, fused.dropped[b])
+              and all(torch.equal(x, y[b]) for x, y in zip(one.state,
+                                                           fused.state)),
+              f"run_trials lane {b} != simulate(seed={seed})")
+    stats = parity(fused.mean_rates_hz(T, p.dt),
+                   runs["csr"][0].mean_rates_hz(T, p.dt))
+    print(f"parity(blocked_fused, csr) over {TRIAL_SEEDS} trials: "
+          f"{stats.summary()}", flush=True)
+    check(stats.rmse_hz == 0 and stats.n_nonfinite == 0,
+          f"parity of blocked_fused and csr: {stats}")
+    ms_b10 = runs["blocked_fused"][1]
+    ms_b1 = sum(single_ms) / len(single_ms)
+    prof = {}
+    for label, fn in (
+            ("B = 10", lambda: run_trials(c, cfg, T_TRIALS_TRACE,
+                                          seeds=TRIAL_SEEDS, syn=syn,
+                                          stimulus=stim,
+                                          probes=ProbeSpec())),
+            ("B = 1", lambda: simulate(c, cfg, T_TRIALS_TRACE, seed=0,
+                                       syn=syn, stimulus=stim,
+                                       probes=ProbeSpec()))):
+        wall_ms, kernels = device_profile(fn)
+        per_step = None if kernels is None else {
+            k: (v / T_TRIALS_TRACE, n / T_TRIALS_TRACE)
+            for k, (v, n) in kernels.items()}
+        print_breakdown(f"blocked_fused {label}, trace over "
+                        f"{T_TRIALS_TRACE} steps, per step",
+                        wall_ms / T_TRIALS_TRACE, per_step, top=6)
+        prof[label] = (None if per_step is None else
+                       (sum(v for v, _ in per_step.values()),
+                        sum(n for _, n in per_step.values())),
+                       wall_ms / T_TRIALS_TRACE)
+    busy = {k: ("not measured" if v[0] is None else
+                f"{v[0][0]:.4f} ms over {v[0][1]:.0f} device ops")
+            for k, v in prof.items()}
+    print(f"trials: B = 10 {ms_b10:.4f} ms/step = {ms_b10 / TRIAL_SEEDS:.4f} "
+          f"ms per trial-step; B = 1 (simulate, mean of {len(single_ms)} "
+          f"seeds) {ms_b1:.4f} ms/step (min {min(single_ms):.4f}, max "
+          f"{max(single_ms):.4f}); trial throughput "
+          f"{ms_b1 * TRIAL_SEEDS / ms_b10:.2f}x the single run's; device "
+          f"busy a step: {json.dumps(busy)}; csr {runs['csr'][1]:.4f}, "
+          f"blocked {runs['blocked'][1]:.4f}, CONFIG.sim (event) "
+          f"{runs['event'][1]:.4f} ms/step at B = 10; all bitwise equal, "
+          f"each lane to simulate(); card {smi}", flush=True)
+    launches = {"spike_deliver": runs["blocked"][2]["spike_deliver"],
+                "fused_deliver_lif": runs["blocked_fused"][2][
+                    "fused_deliver_lif"]}
+    del runs
+    return fused, launches
+
+
+def lane_bytes(blk_id, n_sb, refs, spk, nspk, state_bytes):
+    """For B lanes' spikes (``spk`` [B, n_sb+1, 128], ``nspk`` [B,
+    n_sb+1]) on the store with rows ``blk_id``: (rows of the union, the
+    bound's bytes, the per-lane design's bytes).  The bound counts what a
+    call must move for these spikes, each byte once over the lanes: every
+    lane's nspk and its live blocks' spike entries, the slot of every
+    (source block live in any lane, target block) pair, one 256-byte tile
+    row for every (target block, source neuron spiking in any lane) pair
+    with a stored tile, and ``state_bytes`` of all lanes' state in and
+    out.  The per-lane design (the kernels of this port) moves each
+    lane's own `delivery_bytes`: a row once for every lane that spikes
+    its source."""
+    B, n_tb = spk.shape[0], blk_id.shape[0]
+    any_spk = (spk[:, :n_sb] != 0).any(dim=0)                # [n_sb, 128]
+    union_cols = int((any_spk.sum(dim=1).long() * refs).sum())
+    live_any = int(any_spk.any(dim=1).sum())
+    n_live = int((nspk[:, :n_sb] > 0).sum())
+    union = (nspk.numel() * 4 + n_live * 128 * 4 + live_any * n_tb * 4
+             + union_cols * 256 + state_bytes)
+    per_lane = sum(delivery_bytes(blk_id, n_sb, refs, spk[b], nspk[b],
+                                  state_bytes // B)[1] for b in range(B))
+    return union_cols, union, per_lane
+
+
+@phase("kernel yardstick at B = 10 lanes")
+def phase_trials_yardstick(c, cfg, syn, trials, smi):
+    """Both delivery kernels on the full store with B = 10 lanes of
+    spikes, one launch each: the spikes each lane of the trials run
+    delivers next (its busiest of the last delay steps; the fused kernel
+    on the run's final state), and 0.1% and 1% of the neurons spiking,
+    each lane its own Bernoulli draws (numpy seed 1).  Each bitwise
+    against its plain version; then timed (`timed`) beside the plain
+    version, the union bound (`lane_bytes`, at 3.35 TB/s), the bytes the
+    per-lane design moves, and for `spike_deliver` the one library call
+    of the same function, ``torch.sparse`` CSR x the dense [n, 10] spike
+    matrix (CUDA events, 5 calls; its result must equal the kernel's)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.spike_prop import kernel as K
+    from repro_torch.kernels.spike_prop.ops import pad_spike_blocks
+    p, B = cfg.params, TRIAL_SEEDS
+    n_tb, n = syn.blk_id.shape[0], syn.n
+    raster = trials.records["raster"][:, -p.delay_steps:]   # [B, D, n]
+    busiest = raster.sum(dim=2).argmax(dim=1)
+    run_spikes = raster[torch.arange(B, device=raster.device), busiest]
+    rows = n_tb * 128
+
+    def rowblk(x):
+        out = torch.zeros((B, rows), dtype=x.dtype, device=x.device)
+        out[:, :n] = x
+        return out.reshape(B, n_tb, 128)
+    state = tuple(rowblk(x) for x in trials.state)
+    kw = dict(params=p, fixed_point=cfg.fixed_point)
+    refs = torch.bincount(syn.blk_id.reshape(-1).long(),
+                          minlength=syn.n_sb + 1)[:syn.n_sb]
+    A = sparse_matrix(c, cfg, DEVICE)
+    rng = np.random.default_rng(1)
+    cases = [("run", run_spikes)] + [
+        (frac, torch.from_numpy(rng.random((B, n)) < frac).to(DEVICE))
+        for frac in TRIAL_ACTIVITY]
+    out = {"spike_deliver": [], "fused_deliver_lif": []}
+    for what, spikes in cases:
+        spk, nspk = pad_spike_blocks(spikes, n, syn.n_sb)
+        store = (syn.blk_id, syn.weights, spk, nspk)
+        S = spikes.to(torch.float32).T.contiguous()            # [n, B]
+        for name, fn, plain, state_bytes in (
+                ("spike_deliver", lambda: (K.spike_deliver_tiles(*store),),
+                 lambda: (K.spike_deliver_plain(*store),), B * rows * 4),
+                ("fused_deliver_lif",
+                 lambda: K.fused_deliver_lif(*store, *state, **kw),
+                 lambda: K.fused_deliver_lif_plain(*store, *state, **kw),
+                 B * rows * 4 * 7)):
+            a, b = fn(), plain()
+            torch.cuda.synchronize()
+            err = max(max_abs_err(x, y) for x, y in zip(a, b))
+            check(equal_all(a, b), f"{name} != plain at B = {B}, spikes "
+                  f"{what}: max |err| {err}")
+            lib_ms = None
+            if name == "spike_deliver":
+                check(torch.equal((A @ S).T, a[0].reshape(B, -1)[:, :n]),
+                      f"torch.sparse CSR x dense != delivery kernel at B = "
+                      f"{B}, spikes {what}")
+                lib_ms = cuda_ms(lambda: A @ S, 5, warmup=1)
+            del a, b
+            ms, how = timed(fn, f"{name}_kernel")
+            plain_ms = cuda_ms(plain, 2, warmup=1)
+            cols, union, per_lane = lane_bytes(syn.blk_id, syn.n_sb, refs,
+                                               spk, nspk, state_bytes)
+            bound = union / HBM_BYTES_PER_S * 1e3
+            per_lane_ms = per_lane / HBM_BYTES_PER_S * 1e3
+            lib_note = ("" if lib_ms is None else
+                        f", torch.sparse CSR x dense [n, {B}] {lib_ms:.5f} "
+                        f"ms (CUDA events)")
+            print(f"{name} at B = {B}, spikes {what} "
+                  f"({spikes.sum(dim=1).tolist()} a lane, {cols} union "
+                  f"rows): {ms:.5f} ms/call ({how}), plain {plain_ms:.3f} "
+                  f"ms, union bound {bound:.5f} ms ({union} B), per-lane "
+                  f"design {per_lane_ms:.5f} ms ({per_lane} B, "
+                  f"{per_lane / union:.2f}x the union), {ms / bound:.2f}x "
+                  f"the bound{lib_note}; bitwise equal to plain; card {smi}",
+                  flush=True)
+            out[name].append({"spiking": what, "ms": ms, "timed_by": how,
+                              "plain_ms": plain_ms, "bound_ms": bound,
+                              "per_lane_bound_ms": per_lane_ms,
+                              "library_ms": lib_ms, "max_abs_err": err})
+    del A
+    torch.cuda.empty_cache()
+    return out
+
+
 @phase("LIF kernels against plain (n = 139,255)")
 def phase_lif_check():
     """Both LIF kernels against their plain versions at FlyWire size, on
@@ -1298,6 +1560,120 @@ def sharded_kernels(d, state, res, cfg, smi):
                                   err["fused_deliver_lif"])}
 
 
+def dist_trials(d, cfg, stim, state, smi):
+    """``run_dist_trials`` with DIST_TRIAL_SEEDS seeds and T_DIST_TRIALS
+    steps for each of DIST_RUNS on the P = 12 partitioning: the four
+    bitwise equal to each other (counts, state, dropped, raster; the
+    blocked pair also in the tile counters, per lane), ``bitmap`` equal
+    lane by lane to ``simulate_distributed`` of each seed, each blocked
+    run launching its kernel once per partition and step for all lanes.
+    Then both kernels on the slab with the most live tiles at each lane's
+    busiest step (the gathered spikes of all lanes in one launch; the
+    fused one on the lanes' final state), bitwise against their plain
+    versions (tolerance 0)."""
+    import torch
+    from repro_torch.core import DistConfig, simulate_distributed
+    from repro_torch.exp import ProbeSpec, run_dist_trials
+    from repro_torch.kernels.spike_prop import kernel as K
+    from repro_torch.kernels.spike_prop.ops import pad_spike_blocks
+    P_, U, n_sb = d.n_parts, d.part_size, state.n_sb
+    n_glob, T = P_ * U, T_DIST_TRIALS
+    seeds = tuple(range(DIST_TRIAL_SEEDS))
+    probes = ProbeSpec(raster=True)
+    runs = {}
+    for label, (scheme, engine) in DIST_RUNS.items():
+        sim = cfg if engine is None else dataclasses.replace(cfg,
+                                                             engine=engine)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = run_dist_trials(d, DistConfig(sim=sim, scheme=scheme), T,
+                              seeds=seeds, stimulus=stim, probes=probes)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / T
+        runs[label] = (res, ms, dict(K.LAUNCHES))
+        print(f"run_dist_trials {label} Q19.12: {ms:.4f} ms/step over {T} "
+              f"steps of {len(seeds)} lanes at P = {P_}, spikes per lane "
+              f"{res.counts.sum(dim=1).tolist()}, dropped "
+              f"{res.dropped.tolist()}, stats "
+              f"{ {k: v.tolist() for k, v in res.stats.items()} }, launches "
+              f"{runs[label][2]}", flush=True)
+        want = {"spike_deliver": P_ * T if label == "blocked" else 0,
+                "fused_deliver_lif": P_ * T if label == "blocked_fused"
+                else 0}
+        check(runs[label][2] == want, f"run_dist_trials {label}: launches "
+              f"{runs[label][2]}, expected {want}")
+    base = runs["bitmap"][0]
+    check(int(base.counts.sum()) > 0, "the partitioned trials never spiked")
+    for label, (res, _, _) in runs.items():
+        check(torch.equal(res.counts, base.counts)
+              and torch.equal(res.dropped, base.dropped)
+              and all(torch.equal(x, y) for x, y in zip(res.state,
+                                                         base.state))
+              and torch.equal(res.records["raster"], base.records["raster"]),
+              f"run_dist_trials {label} != bitmap at P = {P_}")
+    bl, bf = runs["blocked"][0].stats, runs["blocked_fused"][0].stats
+    check(all(torch.equal(bl[k], bf[k]) for k in ("tiles_live",
+                                                  "tiles_skipped")),
+          f"tile counters differ: {bl} vs {bf}")
+    for b, seed in enumerate(seeds):
+        one = simulate_distributed(d, DistConfig(sim=cfg, scheme="bitmap"),
+                                   T, seed=seed, stimulus=stim, probes=probes)
+        check(torch.equal(one.counts, base.counts[b])
+              and one.dropped == int(base.dropped[b])
+              and all(torch.equal(x, y[b]) for x, y in zip(one.state,
+                                                           base.state))
+              and torch.equal(one.raster, base.records["raster"][b]),
+              f"run_dist_trials lane {b} != simulate_distributed(seed="
+              f"{seed})")
+    # each lane's busiest step, gathered, in one launch of each kernel
+    perm = torch.from_numpy(d.perm).to(DEVICE)
+    raster = base.records["raster"]                      # [B, T, n_orig]
+    B = raster.shape[0]
+    t = raster.sum(dim=2).argmax(dim=1)
+    glob = torch.zeros((B, n_glob), dtype=torch.bool, device=DEVICE)
+    glob[:, perm] = raster[torch.arange(B, device=DEVICE), t]
+    spk, nspk = pad_spike_blocks(glob, n_glob, n_sb)
+    live = [int(((nspk[:, :n_sb] > 0).long()
+                 * torch.bincount(state.blk_id[q].reshape(-1).long(),
+                                  minlength=n_sb + 1)[:n_sb]).sum())
+            for q in range(P_)]
+    q = max(range(P_), key=lambda i: live[i])
+    n_tb = state.blk_id.shape[1]
+
+    def rows(x):
+        full = torch.zeros((B, n_glob), dtype=x.dtype, device=DEVICE)
+        full[:, perm] = x
+        return torch.nn.functional.pad(
+            full[:, q * U:(q + 1) * U], (0, n_tb * 128 - U)
+        ).reshape(B, n_tb, 128).contiguous()
+    store = (state.blk_id[q], state.weights[q], spk, nspk)
+    kw = dict(params=cfg.params, fixed_point=cfg.fixed_point)
+    a, b = K.spike_deliver_tiles(*store), K.spike_deliver_plain(*store)
+    lif = [rows(x) for x in runs["blocked_fused"][0].state]
+    fa = K.fused_deliver_lif(*store, *lif, **kw)
+    fb = K.fused_deliver_lif_plain(*store, *lif, **kw)
+    torch.cuda.synchronize()
+    err = {"spike_deliver": max_abs_err(a, b),
+           "fused_deliver_lif": max(max_abs_err(x, y)
+                                    for x, y in zip(fa, fb))}
+    check(torch.equal(a, b), f"spike_deliver != plain at B = {B} on "
+          f"partition {q}")
+    check(equal_all(fa, fb), f"fused_deliver_lif != plain at B = {B} on "
+          f"partition {q}")
+    ms = {label: r[1] for label, r in runs.items()}
+    rounded = {k: round(v, 4) for k, v in ms.items()}
+    print(f"P = {P_} trials: ms/step {json.dumps(rounded)} "
+          f"at B = {B}; the four variants bitwise equal, bitmap lane by "
+          f"lane equal to simulate_distributed; both kernels on partition "
+          f"{q}'s slab ({live[q]} live tiles over the lanes' busiest steps "
+          f"{t.tolist()}) bitwise equal to plain; card {smi}", flush=True)
+    launches = {"spike_deliver": runs["blocked"][2]["spike_deliver"],
+                "fused_deliver_lif": runs["blocked_fused"][2][
+                    "fused_deliver_lif"]}
+    return {"ms": ms, "launches": launches, "max_abs_err": err}
+
+
 @phase("partitioned simulator, P = 12, full FlyWire (Q19.12)")
 def phase_distributed(c, stim, smi):
     """The paper's partitioned mapping, its 12 partitions emulated on the
@@ -1382,6 +1758,7 @@ def phase_distributed(c, stim, smi):
     ms = {label: r[1] for label, r in runs.items()}
     yard = sharded_kernels(d, state, base, cfg, smi)
     del runs, bl, bf
+    trials = dist_trials(d, cfg, stim, state, smi)
 
     fused_sim = dataclasses.replace(cfg, engine="blocked_fused")
     wall_ms, kernels = device_profile(lambda: simulate_distributed(
@@ -1412,7 +1789,7 @@ def phase_distributed(c, stim, smi):
     del a, b, base, state, d, greedy
     gc.collect()
     torch.cuda.empty_cache()
-    return yard, launches, ms
+    return yard, launches, ms, trials
 
 
 def flywire_section(smi):
@@ -1441,13 +1818,19 @@ def flywire_section(smi):
     yard, activity = phase_yardstick(c, cfg, syn, fused, smi)
     launches = {"spike_deliver": other_launches["spike_deliver"],
                 "fused_deliver_lif": main_launches["fused_deliver_lif"]}
-    del syn, fused
+    del fused
+    trials, trial_launches = phase_trials(c, cfg, stim, syn, smi)
+    lanes = phase_trials_yardstick(c, cfg, syn, trials, smi)
+    for name, cases in lanes.items():
+        lanes[name] = {"launches": trial_launches[name], "cases": cases}
+    del syn, trials
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated() / 1e9
     check(left < 1.0, f"{left:.3f} GB still allocated after the monolithic "
           f"FlyWire phases")
-    sharded, sharded_launches, ms_dist = phase_distributed(c, stim, smi)
+    sharded, sharded_launches, ms_dist, dist_trials_out = phase_distributed(
+        c, stim, smi)
     del stim, c
     gc.collect()
     torch.cuda.empty_cache()
@@ -1458,7 +1841,8 @@ def flywire_section(smi):
           f"{ms_csr:.4f} ms/step, CONFIG.sim (event) {ms_event:.4f} ms/step; "
           f"P = {P_DIST} ms/step {json.dumps(ms_dist)}; {left:.3f} GB left "
           f"allocated", flush=True)
-    return yard, activity, launches, sharded, sharded_launches
+    return (yard, activity, launches, sharded, sharded_launches, lanes,
+            dist_trials_out)
 
 
 
@@ -1476,7 +1860,8 @@ def main() -> int:
     check_err.update(phase_lif_check())
     check_err["flash_attention"] = phase_flash_check()
 
-    yard, activity, launches, sharded, sharded_launches = flywire_section(smi)
+    (yard, activity, launches, sharded, sharded_launches, lanes,
+     dist_trials_out) = flywire_section(smi)
     lif_yard, lif_ms_step = phase_lif_path(smi)
     for name, (ms, plain_ms, bound, lib_ms, err, n) in lif_yard.items():
         yard[name] = (ms, plain_ms, bound, lib_ms, err)
@@ -1499,7 +1884,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": rel(sources[name]),
             "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": max(err, check_err[name]), "ms": ms,
+            "max_abs_err": max([err, check_err[name]] + [
+                case["max_abs_err"] for case in
+                lanes.get(name, {}).get("cases", [])]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if name == "flash_attention"
             else "bytes",
@@ -1511,10 +1898,20 @@ def main() -> int:
             kernels[-1]["sharded_p12"] = {
                 "launches": sharded_launches[name], "ms": s_ms,
                 "plain_ms": s_plain, "bound_ms": s_bound,
-                "library_ms": s_lib, "max_abs_err": s_err}
+                "library_ms": s_lib, "max_abs_err": s_err,
+                "trials_b3_launches": dist_trials_out["launches"][name],
+                "trials_b3_max_abs_err": dist_trials_out["max_abs_err"][
+                    name]}
+        if name in lanes:
+            # the same kernel over B = 10 lanes of run_trials: one launch
+            # a step for all lanes, and the B = 10 yardstick cases
+            kernels[-1]["trials_b10"] = lanes[name]
     check(all(k["launches"] > 0 for k in kernels)
-          and all(k["sharded_p12"]["launches"] > 0 for k in kernels
-                  if "sharded_p12" in k), "a kernel never launched")
+          and all(k["sharded_p12"]["launches"] > 0
+                  and k["sharded_p12"]["trials_b3_launches"] > 0
+                  and k["trials_b10"]["launches"] > 0
+                  for k in kernels if "sharded_p12" in k),
+          "a kernel never launched")
     print(f"total {time.perf_counter() - t_all:.3f} s; LIF entry points "
           f"{json.dumps({k: round(v, 5) for k, v in lif_ms_step.items()})} "
           f"ms/step", flush=True)

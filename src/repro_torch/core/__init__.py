@@ -1,7 +1,9 @@
 """Core library of the PyTorch port: connectome, LIF neuron, delivery
-engines, the step loop, :func:`simulate` and the partitioned
-:func:`simulate_distributed` (counterpart of :mod:`repro.core`, which
-this package never imports)."""
+engines, the step loop over a batch of lanes, :func:`simulate` and the
+partitioned :func:`simulate_distributed` (each the one-lane case of the
+trial batches of :mod:`repro_torch.exp.trials`), and the rate-parity
+statistic of :mod:`repro_torch.core.validate` (counterpart of
+:mod:`repro.core`, which this package never imports)."""
 
 from .capacity import DISTRIBUTED_CAPACITY, MONOLITHIC_CAPACITY, CapacityConfig
 from .compress import WEIGHT_BITS, quantize_weights
@@ -19,5 +21,7 @@ from .neuron import (FLYWIRE_LIF, FLYWIRE_LIF_1MS, LIFParams, LIFState,
                      fx_to_mv, init_state, lif_step, lif_step_fx, mv_to_fx)
 from .partition import (Partitioning, even_partition, greedy_partition,
                         pad_to_uniform)
+from .validate import (ParityStats, mean_rates_over_trials, parity,
+                       raster_to_times)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

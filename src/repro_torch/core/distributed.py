@@ -20,6 +20,14 @@ the reference's supervision features (``chunk_steps``, checkpoints,
 Records and counts come back in original neuron ids through ``inv_perm``;
 pad neurons never spike (the step's pad mask) and never appear in any
 record or count.
+
+Each partition's carry is in the step's lane layout (:class:`~repro_torch.
+core.step.SimCarry`): a trial batch's B lanes lie inside each partition,
+as the reference's trial axis does (``keys[p, b]``), and every op of a
+partition's step runs once for all of them.  :func:`simulate_distributed`
+is the batch of one lane, with the lane axis taken off before the
+mapping back to original ids; :func:`repro_torch.exp.run_dist_trials`
+keeps it.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from repro_torch.tree import map_tensors
 
 from .capacity import DISTRIBUTED_CAPACITY, CapacityConfig, merge_legacy_capacity
 from .dcsr import DCSR
-from .engine import SimConfig, resolve_device
+from .engine import SimConfig, resolve_device, single_lane
 from .exchange import Topology, all_gather, get_scheme
 from .neuron import LIFState, init_state
 from .step import SimCarry, step_exchange, step_finish
@@ -119,21 +127,24 @@ def _resolve_dist_probes(d: DCSR, sc: SimConfig, probes):
 
 def _init_dist_carry(d: DCSR, cfg: DistConfig, stim, scheme, keys,
                      device) -> list[SimCarry]:
-    """One carry per partition; ``keys`` is [P, 2]."""
+    """One carry per partition, in the step's lane layout; ``keys`` is
+    [P, B, 2]: ``keys[p, b]`` is lane b's key on partition p."""
     P_, U = d.n_parts, d.part_size
+    B = keys.shape[1]
     sc = cfg.sim
     lif0 = init_state(P_ * U, sc.params, sc.fixed_point, device=device)
     carries = []
     for p in range(P_):
         carries.append(SimCarry(
-            lif=LIFState(*(x.reshape(P_, U)[p] for x in lif0)),
-            ring=torch.zeros((sc.params.delay_steps, U), dtype=torch.bool,
+            lif=LIFState(*(x.reshape(P_, U)[p].expand(B, U).clone()
+                           for x in lif0)),
+            ring=torch.zeros((sc.params.delay_steps, B, U), dtype=torch.bool,
                              device=device),
             ptr=0, key=keys[p],
-            counts=torch.zeros(U, dtype=torch.int32, device=device),
-            dropped=torch.zeros((), dtype=torch.int32, device=device),
+            counts=torch.zeros((B, U), dtype=torch.int32, device=device),
+            dropped=torch.zeros(B, dtype=torch.int32, device=device),
             stim=stim.init_state(U),
-            stats={k: torch.zeros((), dtype=torch.int32, device=device)
+            stats={k: torch.zeros(B, dtype=torch.int32, device=device)
                    for k in scheme.init_stats()}))
     return carries
 
@@ -143,8 +154,8 @@ def _run_emulated(scheme, states, carries, stims, pads, vrows,
                   partitionable: bool):
     """The partitions' steps on one device: per step, every partition's
     exchange half, the emulated all_gather, every partition's finish.
-    Returns the final carries and each partition's records, ``[T, ...]``
-    per name."""
+    Returns the final carries and each partition's records, ``[B, T,
+    ...]`` per name."""
     P_ = len(carries)
     topos = [topo._replace(index=p) for p in range(P_)]
     common = dict(scheme=scheme, cap=cfg.capacity, partitionable=partitionable)
@@ -160,7 +171,7 @@ def _run_emulated(scheme, states, carries, stims, pads, vrows,
                 pad_mask=pads[p], voltage_rows=vrows[p], **common)
             for k, v in rec.items():
                 records[p].setdefault(k, []).append(v)
-    return carries, [{k: torch.stack(v) for k, v in r.items()}
+    return carries, [{k: torch.stack(v, dim=1) for k, v in r.items()}
                      for r in records]
 
 
@@ -179,7 +190,8 @@ def _to_orig(d: DCSR, arr: torch.Tensor, dtype=None) -> torch.Tensor:
 
 
 def _assemble_records(d: DCSR, records: list[dict], owner) -> dict:
-    """Per-partition records -> records in original neuron ids."""
+    """Per-partition records ``[*lanes, T, ...]`` -> records in original
+    neuron ids, with the same leading axes."""
     out = {}
     for name in records[0] if records else ():
         arr = torch.stack([r[name] for r in records])      # [P, T, ...]
@@ -202,19 +214,53 @@ def _assemble_records(d: DCSR, records: list[dict], owner) -> dict:
 
 
 def _assemble(d: DCSR, carries: list[SimCarry], records: list[dict],
-              owner) -> DistResult:
-    """The partitions' final carries and records -> a DistResult in
-    original neuron ids."""
+              owner):
+    """The partitions' final carries and records (with or without the lane
+    axis) -> ``(counts int64, dropped, state, records, stats)`` in
+    original neuron ids, dropped and each stats counter summed over the
+    partitions (``[B]`` with the lane axis, scalars without)."""
     counts = _to_orig(d, torch.stack([c.counts for c in carries]),
                       dtype=torch.int64)
     lif = LIFState(*(_to_orig(d, torch.stack(x)) for x in
                      zip(*(c.lif for c in carries))))
     recs = _assemble_records(d, records, owner)
-    stats = {k: torch.stack([c.stats[k] for c in carries]).sum()
+    stats = {k: torch.stack([c.stats[k] for c in carries]).sum(dim=0)
              for k in carries[0].stats}
-    dropped = int(torch.stack([c.dropped for c in carries]).sum())
-    return DistResult(counts=counts, dropped=dropped, state=lif,
-                      raster=recs.get("raster"), records=recs, stats=stats)
+    dropped = torch.stack([c.dropped.long() for c in carries]).sum(dim=0)
+    return counts, dropped, lif, recs, stats
+
+
+def run_partitioned(d: DCSR, cfg: DistConfig, t_steps: int, keys,
+                    sugar_neurons, stimulus, probes, device,
+                    partitionable: bool):
+    """Build the scheme's state, shard the stimulus and run the partitions
+    from ``keys`` [P, B, 2] (emulated on ``device``); returns the final
+    carries, each partition's ``[B, T, ...]`` records and the probe owners.
+    Shared by :func:`simulate_distributed` and
+    :func:`repro_torch.exp.run_dist_trials`."""
+    if cfg.sim.health is not None:
+        raise NotImplementedError("SimConfig.health is not ported yet")
+    if cfg.scheme == "local":
+        raise ValueError("the 'local' scheme is the monolithic simulate(); "
+                         "pick a partitioned exchange scheme")
+    scheme = get_scheme(cfg.scheme)
+    P_, U = d.n_parts, d.part_size
+    state = scheme.build(d, cfg.sim, cfg.capacity, device)
+    stim = _resolve_dist_stimulus(d, cfg.sim, sugar_neurons,
+                                  stimulus).to(device)
+    probes, rows, owner = _resolve_dist_probes(d, cfg.sim, probes)
+    pad = torch.from_numpy(d.inv_perm.reshape(P_, U) >= 0).to(device)
+    rows = torch.from_numpy(rows).to(device)
+    carries = _init_dist_carry(d, cfg, stim, scheme, keys, device)
+
+    def part(x, p):
+        return map_tensors(lambda a: a[p], x)
+    carries, records = _run_emulated(
+        scheme, [part(state, p) for p in range(P_)], carries,
+        [part(stim, p) for p in range(P_)], pad,
+        rows if probes.voltage else [None] * P_, cfg, probes, t_steps,
+        Topology(P_, U, axis=AXIS), partitionable)
+    return carries, records, owner
 
 
 def simulate_distributed(
@@ -254,35 +300,19 @@ def simulate_distributed(
         raise NotImplementedError(
             "chunk_steps, checkpoint_dir, resume and async_checkpoint are "
             "not ported to PyTorch yet")
-    if cfg.sim.health is not None:
-        raise NotImplementedError("SimConfig.health is not ported yet")
-    if cfg.scheme == "local":
-        raise ValueError("the 'local' scheme is the monolithic simulate(); "
-                         "pick a partitioned exchange scheme")
-    scheme = get_scheme(cfg.scheme)
     device = resolve_device(device)
-    P_, U = d.n_parts, d.part_size
-
-    state = scheme.build(d, cfg.sim, cfg.capacity, device)
-    stim = _resolve_dist_stimulus(d, cfg.sim, sugar_neurons,
-                                  stimulus).to(device)
-    probes, rows, owner = _resolve_dist_probes(d, cfg.sim, probes)
-    pad = torch.from_numpy(d.inv_perm.reshape(P_, U) >= 0).to(device)
-    rows = torch.from_numpy(rows).to(device)
-    keys = prng.split(prng.PRNGKey(seed, device=device), P_,
+    keys = prng.split(prng.PRNGKey(seed, device=device), d.n_parts,
                       partitionable=partitionable)
-    carries = _init_dist_carry(d, cfg, stim, scheme, keys, device)
-
-    def part(x, p):
-        return map_tensors(lambda a: a[p], x)
-    carries, records = _run_emulated(
-        scheme, [part(state, p) for p in range(P_)], carries,
-        [part(stim, p) for p in range(P_)], pad,
-        rows if probes.voltage else [None] * P_, cfg, probes, t_steps,
-        Topology(P_, U, axis=AXIS), partitionable)
-
-    return _assemble(d, carries, records, owner)
+    carries, records, owner = run_partitioned(
+        d, cfg, t_steps, keys[:, None], sugar_neurons, stimulus, probes,
+        device, partitionable)
+    # the one lane, its axis taken off before the mapping to original ids
+    carries = [single_lane(c) for c in carries]
+    records = [{k: v.squeeze(0) for k, v in r.items()} for r in records]
+    counts, dropped, lif, recs, stats = _assemble(d, carries, records, owner)
+    return DistResult(counts=counts, dropped=int(dropped), state=lif,
+                      raster=recs.get("raster"), records=recs, stats=stats)
 
 
 __all__ = ["AXIS", "DistConfig", "DistResult", "make_core_mesh",
-           "simulate_distributed"]
+           "run_partitioned", "simulate_distributed"]

@@ -6,6 +6,16 @@ the ring buffer of the uniform 1.8 ms synaptic delay, the PRNG key,
 counters) and runs the step loop of :mod:`repro_torch.core.step` through
 the P=1 ``local`` exchange scheme.
 
+The step runs a batch of lanes (the reference's ``vmap`` over trials,
+written out as a leading axis): :func:`init_carry` makes a trial batch's
+carry from a sequence of seeds, one PRNG stream per lane, and
+:func:`run_steps` runs it to ``[B, T, ...]`` records (the counterpart of
+the reference's ``_run_scan_trials``, which
+:func:`repro_torch.exp.run_trials` calls).  A single run's carry, from
+one seed, has no lane axis; :func:`run_steps` runs it as the batch of one
+lane and takes the axis off again, so :func:`simulate` is the B = 1 case
+of the same loop.
+
 It runs on the CUDA device unless the caller names another device; with
 no device named and no CUDA device present it raises, so a run never
 lands on the CPU by accident.  The reference's supervision features
@@ -94,30 +104,70 @@ class SimResult(NamedTuple):
     stats: dict = {}       # scheme + health counters (none ported yet)
 
 
-def init_carry(n: int, cfg: SimConfig, stimulus, seed: int,
-               device) -> SimCarry:
+def init_carry(n: int, cfg: SimConfig, stimulus, seed, device) -> SimCarry:
+    """The carry at step 0 of a run from ``seed``: an int gives a single
+    run's carry (leaves ``[n]``, ring ``[D, n]``, key ``[2]``), a sequence
+    of seeds a trial batch's in the step's lane layout (leaves ``[B, n]``,
+    ring ``[D, B, n]``, keys ``[B, 2]``), lane b starting as a single run
+    from ``seed[b]`` would."""
+    if isinstance(seed, (int, np.integer)):
+        return single_lane(init_carry(n, cfg, stimulus, [int(seed)], device))
+    keys = torch.stack([prng.PRNGKey(s, device=device) for s in seed])
+    B = keys.shape[0]
+
+    def lanes(x):
+        return x.expand((B,) + x.shape).clone()
     return SimCarry(
-        lif=init_state(n, cfg.params, cfg.fixed_point, device=device),
-        ring=torch.zeros((cfg.params.delay_steps, n), dtype=torch.bool,
+        lif=LIFState(*(lanes(x) for x in init_state(
+            n, cfg.params, cfg.fixed_point, device=device))),
+        ring=torch.zeros((cfg.params.delay_steps, B, n), dtype=torch.bool,
                          device=device),
         ptr=0,
-        key=prng.PRNGKey(seed, device=device),
-        counts=torch.zeros(n, dtype=torch.int32, device=device),
-        dropped=torch.zeros((), dtype=torch.int32, device=device),
+        key=keys,
+        counts=torch.zeros((B, n), dtype=torch.int32, device=device),
+        dropped=torch.zeros(B, dtype=torch.int32, device=device),
         stim=stimulus.init_state(n),
         stats={},
     )
 
 
+def _map_lanes(carry: SimCarry, fn, ring_fn) -> SimCarry:
+    return carry._replace(
+        lif=LIFState(*(fn(x) for x in carry.lif)), ring=ring_fn(carry.ring),
+        key=fn(carry.key), counts=fn(carry.counts),
+        dropped=fn(carry.dropped),
+        stats={k: fn(v) for k, v in carry.stats.items()})
+
+
+def lane_batch(carry: SimCarry) -> SimCarry:
+    """A single run's carry as the batch of one lane (views, no copy)."""
+    return _map_lanes(carry, lambda x: x.unsqueeze(0),
+                      lambda r: r.unsqueeze(1))
+
+
+def single_lane(carry: SimCarry) -> SimCarry:
+    """The one lane of a batch of one, without its lane axis (views)."""
+    return _map_lanes(carry, lambda x: x.squeeze(0), lambda r: r.squeeze(1))
+
+
 def run_steps(syn, carry: SimCarry, stim, cfg: SimConfig, probes,
               t_steps: int, n: int, t0: int = 0,
               partitionable: bool = True) -> tuple[SimCarry, dict]:
-    """Run ``t_steps`` steps from ``carry`` through the ``local`` scheme;
-    the counterpart of the reference's ``_run_scan``."""
+    """Run ``t_steps`` steps from ``carry`` through the ``local`` scheme.
+    A trial batch's carry (keys ``[B, 2]``) gives ``[B, T, ...]`` records,
+    the counterpart of the reference's ``_run_scan_trials``; a single
+    run's (key ``[2]``) runs as one lane and gives ``[T, ...]``, the
+    counterpart of ``_run_scan``.  The given carry is not modified."""
     from .exchange import Topology, get_scheme
-    return scan_steps(get_scheme("local"), syn, carry, stim, cfg,
-                      cfg.capacity, Topology(1, n, axis=None), probes,
-                      t_steps, t0=t0, partitionable=partitionable)
+    single = carry.key.dim() == 1
+    carry, records = scan_steps(
+        get_scheme("local"), syn, lane_batch(carry) if single else carry,
+        stim, cfg, cfg.capacity, Topology(1, n, axis=None), probes, t_steps,
+        t0=t0, partitionable=partitionable)
+    if single:
+        carry = single_lane(carry)
+        records = {k: v.squeeze(0) for k, v in records.items()}
+    return carry, records
 
 
 def _resolve_stimulus(cfg: SimConfig, n: int, sugar_neurons, stimulus):
@@ -200,5 +250,5 @@ def spike_rates_hz(counts: torch.Tensor, t_steps: int, dt_ms: float
 
 
 __all__ = ["SimCarry", "SimConfig", "SimResult", "available_engines",
-           "build_synapses", "init_carry", "resolve_device", "run_steps",
-           "simulate", "spike_rates_hz"]
+           "build_synapses", "init_carry", "lane_batch", "resolve_device",
+           "run_steps", "simulate", "single_lane", "spike_rates_hz"]

@@ -4,9 +4,11 @@ Synapses are grouped into dense 128 x 128 int16 tiles, one per nonempty
 (target block, source block) pair; per step the kernel
 (:func:`repro_torch.kernels.spike_prop.kernel.spike_deliver_tiles`) skips
 every tile whose source block emitted no spikes, and reads only the
-spiking columns of the others.  The tile store is built onto the device
-once per ``build`` and stays there; the per-step ``deliver`` moves only
-the spike vector.  On the CPU the wrapper runs its plain version.
+spiking columns of the others.  A trial batch's spikes ``[B, n]`` go to
+the kernel as its lane axis: one launch a step for all B lanes.  The
+tile store is built onto the device once per ``build`` and stays there;
+the per-step ``deliver`` moves only the spikes.  On the CPU the wrapper
+runs its plain version.
 """
 
 from __future__ import annotations
@@ -43,9 +45,8 @@ class BlockedEngine:
             occupancy=bs.occupancy, tiles_stored=bs.tiles_stored)
 
     def deliver(self, state: BlockedState, spikes: torch.Tensor, cfg):
-        from repro_torch.kernels.spike_prop.kernel import spike_deliver_tiles
-        from repro_torch.kernels.spike_prop.ops import pad_spike_blocks
-        spk_pad, nspk = pad_spike_blocks(spikes, state.n, state.n_sb)
-        out = spike_deliver_tiles(state.blk_id, state.weights, spk_pad, nspk)
-        return (out.reshape(-1)[:state.n],
-                torch.zeros((), dtype=torch.int32, device=spikes.device))
+        """spikes [..., n] -> (g [..., n] float32, dropped [...] int32)."""
+        from repro_torch.kernels.spike_prop.ops import spike_deliver
+        return (spike_deliver(state, spikes),
+                torch.zeros(spikes.shape[:-1], dtype=torch.int32,
+                            device=spikes.device))

@@ -24,13 +24,14 @@ class BlockedFusedEngine(BlockedEngine):
     integrates_lif = True        # step body must skip its own LIF update
 
     def deliver_fused(self, state: BlockedState, spikes, lif, drive, cfg):
-        """spikes [n] bool, lif LIFState, drive StimDrive ->
-        (new_lif, spikes [n] bool, dropped)."""
+        """spikes [..., n] bool, lif LIFState, drive StimDrive ->
+        (new_lif, spikes [..., n] bool, dropped [...]): one kernel launch
+        for all lanes of a trial batch."""
         from repro_torch.kernels.spike_prop.ops import (fused_step,
                                                         pad_spike_blocks)
         spk_pad, nspk = pad_spike_blocks(spikes, state.n, state.n_sb)
         new_lif, out = fused_step(
             state.blk_id, state.weights, spk_pad, nspk, lif, drive, state.n,
             cfg.params, cfg.fixed_point)
-        return new_lif, out, torch.zeros((), dtype=torch.int32,
+        return new_lif, out, torch.zeros(spikes.shape[:-1], dtype=torch.int32,
                                          device=spikes.device)

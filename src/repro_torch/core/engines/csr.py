@@ -7,6 +7,10 @@ order on every run; the sums are still exact, because the weights are
 integers and every partial sum of a neuron's drive stays below 2**24
 (at full FlyWire size, 28,373 inputs x 256 with 9-bit weights), where
 float32 holds integers exactly.
+
+A trial batch's spikes ``[B, n]`` are gathered as one ``[nnz, B]``
+matrix and scatter-added row-wise in one ``index_add_``: each lane's sum
+is its own, and the synapse lists are read once for all lanes.
 """
 
 from __future__ import annotations
@@ -41,7 +45,22 @@ class CsrEngine:
             w=torch.from_numpy(w.astype(np.float32)).to(device), n=c.n)
 
     def deliver(self, state: CsrState, spikes: torch.Tensor, cfg):
-        contrib = state.w * spikes[state.src].to(torch.float32)
-        g = torch.zeros(state.n, dtype=torch.float32, device=spikes.device)
-        g.index_add_(0, state.tgt, contrib)
-        return g, torch.zeros((), dtype=torch.int32, device=spikes.device)
+        """spikes [..., n] -> (g [..., n] float32, dropped [...] int32)."""
+        return (deliver_csr(spikes, state.src, state.tgt, state.w, state.n),
+                torch.zeros(spikes.shape[:-1], dtype=torch.int32,
+                            device=spikes.device))
+
+
+def deliver_csr(spikes: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
+                w: torch.Tensor, n_out: int) -> torch.Tensor:
+    """``g[..., tgt[s]] += w[s] * spikes[..., src[s]]`` over the synapses
+    s, into a zero ``[..., n_out]`` (a target ``n_out`` lands in a
+    discarded row): the lanes side by side in one gather and one
+    ``index_add_`` of ``[nnz, B]`` rows."""
+    lead = spikes.shape[:-1]
+    cols = spikes.reshape(-1, spikes.shape[-1]).T       # [n, B]
+    contrib = w[:, None] * cols[src].to(torch.float32)
+    g = torch.zeros((n_out + 1, cols.shape[1]), dtype=torch.float32,
+                    device=spikes.device)
+    g.index_add_(0, tgt, contrib)
+    return g[:n_out].T.reshape(lead + (n_out,))

@@ -11,6 +11,11 @@ alike, as requested minus delivered synapses.  The scatter-add is
 ``index_add_`` into an ``[n + 1]`` buffer whose last lane takes the
 unused slots; on CUDA it sums with atomics in no fixed order, which is
 still exact, because the weights are integers (see the ``csr`` engine).
+
+A trial batch's spikes ``[B, n]`` are compacted and gathered row by row,
+each lane with the whole of ``cfg.capacity`` (the budgets are per lane,
+as under the reference's ``vmap``), and scatter-added in one
+``index_add_`` over the flattened rows.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 
 from ..capacity import CapacityConfig
 from ..compaction import (BLOCK, active_fanout_total, derived_block_capacity,
-                          n_blocks, ragged_slots, two_level_active)
+                          n_blocks, ragged_slots, row_index_add,
+                          two_level_active)
 from ..compress import quantize_weights
 from ..connectome import Connectome
 from .base import register
@@ -84,6 +90,7 @@ class EventEngine:
                           out_w=t(ow.astype(np.float32)), n=c.n)
 
     def deliver(self, state: EventState, spikes: torch.Tensor, cfg):
+        """spikes [..., n] -> (g [..., n] float32, dropped [...] int32)."""
         n = state.n
         cap = cfg.capacity
         bcap = cap.block_capacity or derived_block_capacity(
@@ -93,12 +100,11 @@ class EventEngine:
             act_idx, state.out_indptr, cap.syn_budget, invalid_from=n,
             gather_size=state.out_tgt.shape[0])
         contrib = torch.where(ok, state.out_w[syn_ix], 0.0)
-        tgt = torch.where(ok, state.out_tgt[syn_ix], n).long()
-        g = torch.zeros(n + 1, dtype=torch.float32, device=spikes.device)
-        g.index_add_(0, tgt, contrib)
+        tgt = torch.where(ok, state.out_tgt[syn_ix], n)
+        g = row_index_add(n + 1, tgt, contrib)
         requested = active_fanout_total(spikes, state.out_indptr)
         delivered = torch.clamp(total, max=cap.syn_budget)
-        return g[:n], requested - delivered
+        return g[..., :n], requested - delivered
 
 
 __all__ = ["EventEngine", "EventState", "auto_capacity"]

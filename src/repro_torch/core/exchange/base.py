@@ -16,6 +16,12 @@ to ``deliver_fused``, which also integrates).  ``Topology.index`` is this
 partition's place on the axis, which the reference reads with
 ``axis_index``.
 
+Trial batches: every per-neuron tensor a scheme sees or returns has the
+lanes as leading axes (``delayed`` [B, U], ``g_units`` [B, U], ``dropped``
+and each stats counter [B]), as the reference's scheme sees one lane
+under ``vmap``; a lane's exchange reaches only that lane of the other
+partitions.  Without the leading axis a call is one lane.
+
 The ``faulty`` wrapper scheme is not ported yet; asking for it raises
 ``NotImplementedError``.
 """
@@ -55,12 +61,13 @@ class ExchangeScheme(Protocol):
 
     def exchange(self, state: Any, delayed, cap, topo: Topology
                  ) -> tuple[torch.Tensor, Any]:
-        """Local delayed spikes [U] -> (sent, kept)."""
+        """Local delayed spikes [..., U] -> (sent, kept)."""
         ...
 
     def deliver(self, state: Any, payload: Any, delayed, sim, cap,
                 topo: Topology):
-        """(gathered, kept) -> (g_units [U] f32, dropped i32, stats dict)."""
+        """(gathered, kept) -> (g_units [..., U] f32, dropped [...] i32,
+        stats dict of [...] counters)."""
         ...
 
     def init_stats(self) -> dict:
@@ -69,8 +76,9 @@ class ExchangeScheme(Protocol):
 
 def all_gather(sent: list[torch.Tensor]) -> torch.Tensor:
     """The emulated collective: every partition's contribution, in
-    partition order, along the first axis (one partition: its own)."""
-    return sent[0] if len(sent) == 1 else torch.cat(sent)
+    partition order, along the last axis, lane by lane (one partition: its
+    own)."""
+    return sent[0] if len(sent) == 1 else torch.cat(sent, dim=-1)
 
 
 _REGISTRY: dict[str, ExchangeScheme] = {}

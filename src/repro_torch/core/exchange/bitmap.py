@@ -11,20 +11,21 @@ from __future__ import annotations
 
 import torch
 
+from ..engines.csr import deliver_csr
 from .arrays import build_dist_arrays
 from .base import Topology, register_scheme
 
 
 def deliver_bitmap(spk_global: torch.Tensor, arr_src, arr_tgt, arr_w,
                    U: int) -> torch.Tensor:
-    """spk_global: [P*U] bool; local in-CSR gather + scatter-add -> [U]."""
-    spk_pad = torch.zeros(spk_global.shape[0] + 1, dtype=torch.float32,
+    """spk_global: [..., P*U] bool; local in-CSR gather + scatter-add ->
+    [..., U] (pad synapses read a zero spike and land in a discarded
+    row)."""
+    lead, n = spk_global.shape[:-1], spk_global.shape[-1]
+    spk_pad = torch.zeros(lead + (n + 1,), dtype=torch.bool,
                           device=spk_global.device)
-    spk_pad[:-1] = spk_global
-    contrib = arr_w * spk_pad[arr_src.long()]
-    g = torch.zeros(U + 1, dtype=torch.float32, device=spk_global.device)
-    g.index_add_(0, arr_tgt.long(), contrib)
-    return g[:U]
+    spk_pad[..., :n] = spk_global
+    return deliver_csr(spk_pad, arr_src, arr_tgt, arr_w, U)
 
 
 @register_scheme
@@ -43,4 +44,5 @@ class BitmapExchange:
     def deliver(self, state, payload, delayed, sim, cap, topo: Topology):
         g = deliver_bitmap(payload[0], state.syn_src, state.syn_tgt,
                            state.syn_w, topo.part_size)
-        return g, torch.zeros((), dtype=torch.int32, device=g.device), {}
+        return g, torch.zeros(g.shape[:-1], dtype=torch.int32,
+                              device=g.device), {}

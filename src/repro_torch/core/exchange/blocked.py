@@ -15,9 +15,12 @@ build_blocked_sharded`).  Per step:
 Delivery is exact (no synapse budget); the only drops are spikes beyond
 the event capacity, counted in synapse units as the event scheme counts
 them.  The scheme sums ``tiles_live`` / ``tiles_skipped`` into the run's
-stats.  With ``sim.engine = "blocked_fused"`` it reports ``fuses_lif``,
-and each partition's step is one launch of the fused delivery->LIF kernel
-(``fused_deliver_lif``) instead; exchange, drops and stats are unchanged.
+stats.  A trial batch's lanes (events ``[B, P*K]``) go to the kernel as
+its lane axis, one launch a partition and step for all lanes, and the
+counters are per lane.  With ``sim.engine = "blocked_fused"`` it reports
+``fuses_lif``, and each partition's step is one launch of the fused
+delivery->LIF kernel (``fused_deliver_lif``) instead; exchange, drops
+and stats are unchanged.
 """
 
 from __future__ import annotations
@@ -43,22 +46,27 @@ class ShardedBlockedState:
 
 def event_spike_blocks(events: torch.Tensor, n_glob: int, n_sb: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Gathered events [P*K] (pad = ``n_glob``) -> the kernels' operands:
-    ``[n_sb + 1, SRC_BLK]`` float32 spike blocks, the last the all-zero
-    pad block, and their ``[n_sb + 1]`` int32 spike counts."""
+    """Gathered events [..., P*K] (pad = ``n_glob``) -> the kernels'
+    operands: ``[..., n_sb + 1, SRC_BLK]`` float32 spike blocks, the last
+    the all-zero pad block, and their ``[..., n_sb + 1]`` int32 spike
+    counts."""
     from repro_torch.kernels.spike_prop.kernel import SRC_BLK
+    lead = events.shape[:-1]
     npad = (n_sb + 1) * SRC_BLK
-    spk = torch.zeros(npad + 1, dtype=torch.float32, device=events.device)
-    spk[torch.where(events < n_glob, events, npad).long()] = 1.0
-    blocks = spk[:npad].reshape(n_sb + 1, SRC_BLK)
-    return blocks, blocks.sum(dim=1).to(torch.int32)
+    spk = torch.zeros(lead + (npad + 1,), dtype=torch.float32,
+                      device=events.device)
+    spk.scatter_(-1, torch.where(events < n_glob, events, npad).long(), 1.0)
+    blocks = spk[..., :npad].reshape(lead + (n_sb + 1, SRC_BLK)).contiguous()
+    return blocks, blocks.sum(dim=-1).to(torch.int32)
 
 
 def tile_stats(blk_id: torch.Tensor, n_sb: int, nspk: torch.Tensor) -> dict:
     """Live and skipped stored tiles of one partition's [n_tb, E] rows
-    this step (``nspk[n_sb]``, the pad block, is always 0)."""
+    this step, per lane of ``nspk`` [..., n_sb + 1] (``nspk[..., n_sb]``,
+    the pad block, is always 0)."""
     stored = blk_id < n_sb
-    live = (nspk[blk_id.long()] > 0).sum(dtype=torch.int32)
+    live = (nspk[..., blk_id.long()] > 0).sum(dim=(-2, -1),
+                                             dtype=torch.int32)
     return {"tiles_live": live,
             "tiles_skipped": stored.sum(dtype=torch.int32) - live}
 
@@ -92,7 +100,7 @@ class BlockedExchange:
         spk_pad, nspk = event_spike_blocks(events, topo.n_global, state.n_sb)
         out = spike_deliver_tiles(state.blk_id, state.weights, spk_pad, nspk)
         drop = capacity_overflow_fanout(delayed, idx, state.src_gfo, U)
-        return (out.reshape(-1)[:U], drop,
+        return (out.reshape(out.shape[:-2] + (-1,))[..., :U], drop,
                 tile_stats(state.blk_id, state.n_sb, nspk))
 
     # -- fused-integration capability (sim.engine="blocked_fused") --

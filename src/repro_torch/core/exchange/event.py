@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ..compaction import derived_block_capacity, ragged_slots, two_level_active
+from ..compaction import (derived_block_capacity, ragged_slots,
+                          row_index_add, two_level_active)
 from .arrays import build_dist_arrays
 from .base import Topology, register_scheme
 
@@ -23,8 +24,8 @@ def gather_active_events(delayed: torch.Tensor, cap, topo: Topology):
     """The local half of the event exchange, shared by the ``event`` and
     sharded ``blocked`` schemes: compact this partition's delayed spikes.
 
-    Returns ``(gid [K] global ids to all-gather, idx [K] local kept
-    ids)``; pad slots are ``P*U`` and ``U``."""
+    Returns ``(gid [..., K] global ids to all-gather, idx [..., K] local
+    kept ids)``; pad slots are ``P*U`` and ``U``."""
     U, n_glob = topo.part_size, topo.n_global
     bcap = cap.block_capacity or derived_block_capacity(U, cap.spike_capacity)
     idx = two_level_active(delayed, cap.spike_capacity, bcap)
@@ -35,27 +36,26 @@ def gather_active_events(delayed: torch.Tensor, cap, topo: Topology):
 def capacity_overflow_fanout(delayed, idx, src_gfo, U: int) -> torch.Tensor:
     """Global fan-out of the spikes the bounded compaction could not keep:
     they enter no partition's event list, so their whole fan-out is
-    dropped (requested minus kept, in synapse units; int32)."""
-    req_fo = torch.where(delayed, src_gfo, 0).sum()
+    dropped (requested minus kept, in synapse units; int32 [...])."""
+    req_fo = torch.where(delayed, src_gfo, 0).sum(dim=-1)
     kept_fo = torch.where(idx < U, src_gfo[idx.clamp(max=U - 1).long()],
-                          0).sum()
+                          0).sum(dim=-1)
     return (req_fo - kept_fo).to(torch.int32)
 
 
 def deliver_events(events: torch.Tensor, out_indptr, out_tgt, out_w,
                    U: int, n_glob: int, syn_budget: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """events: [E] global ids (pad = n_glob).  The bounded ragged gather
-    against this partition's source-major local store -> (g [U], synapses
-    dropped to the budget)."""
+    """events: [..., E] global ids (pad = n_glob).  The bounded ragged
+    gather against this partition's source-major local store, lane by
+    lane -> (g [..., U], synapses dropped to the budget [...])."""
     syn_ix, ok, total = ragged_slots(
         events, out_indptr, syn_budget, invalid_from=n_glob,
         gather_size=out_tgt.shape[0])
     contrib = torch.where(ok, out_w[syn_ix], 0.0)
-    tgt = torch.where(ok, out_tgt[syn_ix], U).long()
-    g = torch.zeros(U + 1, dtype=torch.float32, device=events.device)
-    g.index_add_(0, tgt, contrib)
-    return g[:U], torch.clamp(total - syn_budget, min=0)
+    tgt = torch.where(ok, out_tgt[syn_ix], U)
+    g = row_index_add(U + 1, tgt, contrib)
+    return g[..., :U], torch.clamp(total - syn_budget, min=0)
 
 
 @register_scheme

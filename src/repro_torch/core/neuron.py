@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/core/neuron.py``: the float path and the int32
 Q19.12 fixed-point path (the Loihi 2 microcode analogue), vectorized over
-neurons.  The CUDA kernel in :mod:`repro_torch.kernels.spike_prop` applies
-the same math per thread (``csrc/lif.cuh``) and is held against these
-functions.
+neurons.  Every function is elementwise, so it takes a trial batch's
+``[B, n]`` state as it takes ``[n]``.  The CUDA kernel in
+:mod:`repro_torch.kernels.spike_prop` applies the same math per thread
+(``csrc/lif.cuh``) and is held against these functions.
 
 Bit-exactness with the JAX reference rests on four details:
 
@@ -104,9 +105,9 @@ FLYWIRE_LIF_1MS = LIFParams(dt=1.0, tau_ref=2.0, delay=2.0)
 
 
 class LIFState(NamedTuple):
-    v: torch.Tensor       # [n] float32 mV (or int32 fx)
-    g: torch.Tensor       # [n] float32 mV (or int32 fx)
-    refrac: torch.Tensor  # [n] int32 steps remaining
+    v: torch.Tensor       # [..., n] float32 mV (or int32 fx)
+    g: torch.Tensor       # [..., n] float32 mV (or int32 fx)
+    refrac: torch.Tensor  # [..., n] int32 steps remaining
 
 
 def init_state(n: int, params: LIFParams, fixed_point: bool = False,
@@ -248,7 +249,8 @@ def lif_step_fx(state: LIFState, g_in_units: torch.Tensor, params: LIFParams,
 def poisson_drive(key: torch.Tensor, n: int, rate_hz: float, dt_ms: float,
                   mask: torch.Tensor | None = None, *,
                   partitionable: bool = True) -> torch.Tensor:
-    """Bernoulli(rate*dt) spike draw for Poisson inputs / background."""
+    """Bernoulli(rate*dt) spike draw for Poisson inputs / background:
+    ``[..., n]`` for keys ``[..., 2]``, ``mask`` [n] shared."""
     p = rate_hz * dt_ms * 1e-3
     draws = prng.bernoulli(key, p, (n,), partitionable=partitionable)
     if mask is not None:

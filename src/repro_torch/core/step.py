@@ -18,6 +18,12 @@ the one-partition composition, which :func:`scan_steps` loops; the
 partitioned runner (:mod:`repro_torch.core.distributed`) drives the two
 halves itself.  Where the reference scans over an immutable carry, the
 loop copies the ring buffer once and then updates it in place every step.
+
+There is one step body, and it runs a batch of lanes: the reference
+vmaps its step over a trial axis, and here that axis is written out as
+the leading axis of every per-lane leaf of the carry (:class:`SimCarry`).
+Every op of the step runs once over all B lanes; the synaptic state and
+the stimulus are shared.  A single run is the batch of one lane.
 """
 
 from __future__ import annotations
@@ -38,22 +44,24 @@ def _scheme_fuses_lif(scheme: ExchangeScheme, sim) -> bool:
 
 
 class SimCarry(NamedTuple):
-    """Loop carry of one partition (leaves are [U]-shaped tensors on the
-    run's device; U = n when P = 1)."""
-    lif: LIFState
-    ring: torch.Tensor     # [D, U] bool delayed-spike ring buffer
+    """Loop carry of one partition over B lanes (tensors on the run's
+    device; U = n when P = 1).  The ring is ``[D, B, U]``, so that a step's
+    slot ``ring[ptr]`` is one contiguous ``[B, U]`` block, read and written
+    in place as one op."""
+    lif: LIFState          # leaves [B, U]
+    ring: torch.Tensor     # [D, B, U] bool delayed-spike ring buffer
     ptr: int               # ring slot read (then written) this step
-    key: torch.Tensor      # [2] int64: the two uint32 words of a JAX key
-    counts: torch.Tensor   # [U] int32 spike counts
-    dropped: torch.Tensor  # scalar int32 total dropped synapse events
+    key: torch.Tensor      # [B, 2] int64: the two uint32 words of a JAX key
+    counts: torch.Tensor   # [B, U] int32 spike counts
+    dropped: torch.Tensor  # [B] int32 total dropped synapse events
     stim: Any              # stimulus state (() for stateless stimuli)
-    stats: dict            # scheme stats counters (scheme.init_stats())
+    stats: dict            # scheme stats counters, [B] each
 
 
 class Exchanged(NamedTuple):
     """What :func:`step_exchange` leaves for :func:`step_finish`."""
-    keys: torch.Tensor     # [n_split, 2] this step's key split
-    delayed: torch.Tensor  # [U] bool spikes delivered this step
+    keys: torch.Tensor     # [B, n_split, 2] this step's key split
+    delayed: torch.Tensor  # [B, U] bool spikes delivered this step
     sent: torch.Tensor     # this partition's part of the collective
     kept: Any              # what the scheme keeps for its deliver
 
@@ -75,13 +83,14 @@ def step_finish(carry: SimCarry, ex: Exchanged, gathered: torch.Tensor,
                 pad_mask=None, voltage_rows=None) -> tuple[SimCarry, dict]:
     """The half of a step after the collective.  Writes this step's spikes
     into ``carry.ring`` in place (the slot just read) and returns the new
-    carry and this step's probe records.  ``pad_mask`` ([U] bool, True
-    for real neurons) keeps a padded partition's pad slots silent."""
+    carry and this step's probe records (``[B, ...]`` each).  ``pad_mask``
+    ([U] bool, True for real neurons) keeps a padded partition's pad slots
+    silent."""
     from repro_torch.exp.stimulus import apply_drive
     p = sim.params
     payload = (gathered, ex.kept)
-    sstate, drive = stim.step(carry.stim, ex.keys[1:], t, topo.part_size, p,
-                              partitionable=partitionable)
+    sstate, drive = stim.step(carry.stim, ex.keys[..., 1:, :], t,
+                              topo.part_size, p, partitionable=partitionable)
     if _scheme_fuses_lif(scheme, sim):
         lif, spikes, drop, stats = scheme.deliver_fused(
             state, payload, ex.delayed, carry.lif, drive, sim, cap, topo)
@@ -96,7 +105,7 @@ def step_finish(carry: SimCarry, ex: Exchanged, gathered: torch.Tensor,
     carry.ring[carry.ptr] = spikes
     new = SimCarry(
         lif=lif, ring=carry.ring, ptr=(carry.ptr + 1) % p.delay_steps,
-        key=ex.keys[0], counts=carry.counts + spikes.to(torch.int32),
+        key=ex.keys[..., 0, :], counts=carry.counts + spikes.to(torch.int32),
         dropped=carry.dropped + drop.to(torch.int32), stim=sstate,
         stats={k: carry.stats[k] + stats[k] for k in carry.stats})
     return new, probes.collect(spikes=spikes, lif=lif, drop=drop, params=p,
@@ -120,7 +129,7 @@ def scan_steps(scheme: ExchangeScheme, state, carry: SimCarry, stim, sim,
                cap, topo: Topology, probes, t_steps: int, *, t0: int = 0,
                partitionable: bool = True) -> tuple[SimCarry, dict]:
     """Run ``t_steps`` of :func:`sim_step` from step index ``t0``; returns
-    the final carry and the records stacked to ``[T, ...]``.  The given
+    the final carry and the records stacked to ``[B, T, ...]``.  The given
     carry is not modified."""
     voltage_rows = None
     if probes.voltage:
@@ -136,7 +145,7 @@ def scan_steps(scheme: ExchangeScheme, state, carry: SimCarry, stim, sim,
                               voltage_rows=voltage_rows)
         for k, v in rec.items():
             records.setdefault(k, []).append(v)
-    return carry, {k: torch.stack(v) for k, v in records.items()}
+    return carry, {k: torch.stack(v, dim=1) for k, v in records.items()}
 
 
 __all__ = ["Exchanged", "SimCarry", "scan_steps", "sim_step",

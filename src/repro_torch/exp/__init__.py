@@ -1,6 +1,6 @@
-"""Experiment subsystem: stimulus protocols, per-step probes and the
-named-scenario registry (counterpart of ``repro.exp``; trial batches are
-not ported yet)."""
+"""Experiment subsystem: stimulus protocols, per-step probes, the
+named-scenario registry and trial batches (counterpart of ``repro.exp``;
+the clocked stimuli are not ported yet)."""
 
 from .probes import NO_PROBES, ProbeSpec
 from .scenarios import (Scenario, available_scenarios, build_scenario,
@@ -8,6 +8,8 @@ from .scenarios import (Scenario, available_scenarios, build_scenario,
 from .stimulus import (SILENT, Background, Compose, PoissonDrive, SkipKey,
                        StimDrive, apply_drive, legacy_stimulus, n_split,
                        shard_stimulus)
+from .trials import (DistTrialResult, TrialResult, run_dist_trials,
+                     run_trials, trial_carry)
 
 __all__ = [
     "NO_PROBES", "ProbeSpec",
@@ -16,4 +18,6 @@ __all__ = [
     "SILENT", "Background", "Compose", "PoissonDrive", "SkipKey",
     "StimDrive", "apply_drive", "legacy_stimulus", "n_split",
     "shard_stimulus",
+    "DistTrialResult", "TrialResult", "run_dist_trials", "run_trials",
+    "trial_carry",
 ]

@@ -1,7 +1,9 @@
 """Per-step probes: what the simulation records each step.
 
 Counterpart of ``repro/exp/probes.py``.  ``SimResult.records`` is a dict
-of ``[T, ...]`` tensors:
+of ``[T, ...]`` tensors (``[B, T, ...]`` under
+:func:`repro_torch.exp.run_trials`, one row per lane, as the
+reference's):
 
 =========== ======================= ====================================
 key         shape per step          meaning
@@ -21,7 +23,6 @@ import dataclasses
 
 import numpy as np
 import torch
-
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,26 +49,29 @@ class ProbeSpec:
 
     def collect(self, *, spikes: torch.Tensor, lif, drop: torch.Tensor,
                 params, voltage_rows: torch.Tensor | None = None) -> dict:
-        """This step's record dict.  ``voltage_rows`` is ``self.voltage``
-        as a tensor on the state's device, made once per run by the caller
-        (else here, per call)."""
+        """This step's record dict, for ``spikes`` ``[..., n]`` (a trial
+        batch's ``[B, n]``: every record gets the same leading axes).
+        ``voltage_rows`` is ``self.voltage`` as a tensor on the state's
+        device, made once per run by the caller (else here, per call)."""
         rec: dict = {}
+        n = spikes.shape[-1]
         if self.raster:
             rec["raster"] = spikes
         if self.voltage:
             if voltage_rows is None:
-                self.check(spikes.shape[0])
+                self.check(n)
                 voltage_rows = torch.tensor(self.voltage, dtype=torch.long,
                                             device=spikes.device)
-            rec["v"] = lif.v[voltage_rows]
+            rec["v"] = lif.v[..., voltage_rows]
         if self.pop_rate:
             # XLA compiles the reference's mean(s) / (dt * 1e-3) into one
             # multiply, sum(s) * (1/n * 1/dt_s), with both reciprocals and
             # their product rounded to float32; so does this.
             one = np.float32(1.0)
-            scale = ((one / np.float32(spikes.shape[0]))
+            scale = ((one / np.float32(n))
                      * (one / np.float32(params.dt * 1e-3)))
-            rec["pop_rate_hz"] = spikes.to(torch.float32).sum() * float(scale)
+            rec["pop_rate_hz"] = (spikes.to(torch.float32).sum(dim=-1)
+                                  * float(scale))
         if self.drops:
             rec["dropped"] = drop.to(torch.int32)
         return rec

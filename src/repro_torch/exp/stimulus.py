@@ -12,9 +12,14 @@ Drive channels (all optional, combined additively / by OR):
 * ``force``   — forced spikes this step (the scaling study's background).
 
 RNG contract, as in the reference: the step splits its carry key into
-:func:`n_split` subkeys and hands ``keys[1:]`` to the stimulus, whose
-parts consume them in declaration order.  ``partitionable`` selects the
-threefry mode (see :mod:`repro_torch.random`).
+:func:`n_split` subkeys and hands ``keys[..., 1:, :]`` to the stimulus,
+whose parts consume them in declaration order.  ``partitionable`` selects
+the threefry mode (see :mod:`repro_torch.random`).
+
+Trial batches: the keys are ``[..., k, 2]`` and every drive channel
+``[..., n]``, one row per lane (``[B, k, 2]`` and ``[B, n]`` in a trial
+batch of B lanes, as the reference's stimulus sees one lane under
+``vmap``); the stimulus tensors themselves are shared by all lanes.
 
 Partitioned use: :func:`shard_stimulus` turns a stimulus into its dense
 per-neuron ("masked") form and remaps every per-neuron tensor through a
@@ -40,9 +45,9 @@ from repro_torch.tree import map_tensors
 class StimDrive(NamedTuple):
     """Per-step drive; ``None`` channels cost nothing."""
 
-    v_mv: torch.Tensor | None = None      # [n] float32 membrane drive, mV
-    g_units: torch.Tensor | None = None   # [n] float32 drive, weight units
-    force: torch.Tensor | None = None     # [n] bool forced spikes
+    v_mv: torch.Tensor | None = None      # [..., n] float32 drive, mV
+    g_units: torch.Tensor | None = None   # [..., n] float32, weight units
+    force: torch.Tensor | None = None     # [..., n] bool forced spikes
 
 
 def n_split(stim) -> int:
@@ -103,17 +108,19 @@ class PoissonDrive:
     def step(self, state, keys, t, n, p, *, partitionable=True):
         prob = self.rate_hz * p.dt * 1e-3
         amp = (1.5 * p.v_th) if self.v_amp_mv is None else self.v_amp_mv
+        key = keys[..., 0, :]
         if self.idx is not None:
-            draws = prng.bernoulli(keys[0], prob, tuple(self.idx.shape),
+            draws = prng.bernoulli(key, prob, tuple(self.idx.shape),
                                    partitionable=partitionable)
-            out = torch.zeros(n, dtype=torch.float32, device=keys.device)
+            out = torch.zeros(key.shape[:-1] + (n,), dtype=torch.float32,
+                              device=keys.device)
             if self.target == "v":
-                out[self.idx.long()] = draws.to(torch.float32) * f32s(amp)
+                out[..., self.idx.long()] = draws.to(torch.float32) * f32s(amp)
                 return state, StimDrive(v_mv=out)
-            out.index_add_(0, self.idx.long(),
+            out.index_add_(-1, self.idx.long(),
                            draws.to(torch.float32) * f32s(self.weight))
             return state, StimDrive(g_units=out)
-        draws = poisson_drive(keys[0], n, self.rate_hz, p.dt, self.mask,
+        draws = poisson_drive(key, n, self.rate_hz, p.dt, self.mask,
                               partitionable=partitionable)
         if self.target == "v":
             return state, StimDrive(
@@ -150,7 +157,7 @@ class Background:
 
     def step(self, state, keys, t, n, p, *, partitionable=True):
         return state, StimDrive(force=poisson_drive(
-            keys[0], n, self.rate_hz, p.dt, self.mask,
+            keys[..., 0, :], n, self.rate_hz, p.dt, self.mask,
             partitionable=partitionable))
 
     def to_masked(self, n: int):
@@ -206,7 +213,7 @@ class Compose:
         new_states = []
         k0 = 0
         for s, st in zip(self.parts, state):
-            ks = keys[k0:k0 + s.n_keys] if s.n_keys else None
+            ks = keys[..., k0:k0 + s.n_keys, :] if s.n_keys else None
             k0 += s.n_keys
             st2, d = s.step(st, ks, t, n, p, partitionable=partitionable)
             new_states.append(st2)

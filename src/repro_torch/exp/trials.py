@@ -1,0 +1,180 @@
+"""Trial batches: the paper's 10-trial statistic in one run of B lanes.
+
+Counterpart of ``repro/exp/trials.py``.  The paper validates
+implementations by comparing per-neuron spike rates averaged over 10
+trials (Figs 6, 12, 14-15).  The reference vmaps its simulation scan over
+a batch of seeds; here the trial axis is the step's lane axis
+(:mod:`repro_torch.core.step`): every op of a step runs once for all B
+lanes, and each delivery kernel launches once a step for all of them.
+:func:`run_trials` is bitwise equal to a loop of
+:func:`repro_torch.core.simulate` calls over the same seeds.
+:func:`run_dist_trials` is the same batching on the partitioned path,
+the trial axis inside each partition (``keys[p, b]``, as the reference
+lays them out), bitwise equal to a loop of
+:func:`repro_torch.core.simulate_distributed` calls.  ``mean_rates_hz``
+feeds :func:`repro_torch.core.validate.parity` directly.
+
+The synaptic state and the stimulus are shared by the lanes; each lane
+has its own PRNG stream.  Both runners read nothing back to the host
+while they run.  Their supervision (``chunk_steps``) is not ported, nor
+is the multi-device path (``emulate=False``, ``mesh``): asking for either
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import random as prng
+from repro_torch.core.connectome import Connectome
+from repro_torch.core.engine import (SimConfig, _resolve_probes,
+                                     _resolve_stimulus, build_synapses,
+                                     init_carry, resolve_device, run_steps)
+from repro_torch.core.neuron import LIFState
+
+
+def _seed_tuple(seeds) -> tuple:
+    if isinstance(seeds, (int, np.integer)):
+        seeds = tuple(range(int(seeds)))
+    else:
+        seeds = tuple(int(s) for s in seeds)
+    if not seeds:
+        raise ValueError("need at least one seed")
+    return seeds
+
+
+def trial_carry(n: int, cfg: SimConfig, stimulus, seeds, device=None):
+    """Trial-batched carry: what ``simulate(..., seed=s)`` starts from, one
+    lane per seed, in the step's lane layout.  ``seeds`` is a trial count
+    B (seeds 0..B-1) or a sequence.  Returns ``(carry, seeds)`` with
+    ``seeds`` normalized to a tuple."""
+    seeds = _seed_tuple(seeds)
+    return init_carry(n, cfg, stimulus, seeds, resolve_device(device)), seeds
+
+
+def _rates_hz(counts: torch.Tensor, t_steps: int, dt_ms: float
+              ) -> np.ndarray:
+    return (np.asarray(counts.cpu(), np.float64)
+            / (t_steps * dt_ms * 1e-3))
+
+
+class TrialResult(NamedTuple):
+    counts: torch.Tensor   # [B, n] int32 per-trial spike counts
+    dropped: torch.Tensor  # [B] int32
+    state: LIFState        # leaves [B, n]
+    records: dict          # probe records, each [B, T, ...]
+    seeds: tuple           # the seeds, in batch order
+
+    def rates_hz(self, t_steps: int, dt_ms: float) -> np.ndarray:
+        """[B, n] per-trial per-neuron rates (float64, on the host)."""
+        return _rates_hz(self.counts, t_steps, dt_ms)
+
+    def mean_rates_hz(self, t_steps: int, dt_ms: float) -> np.ndarray:
+        """[n] trial-averaged rates: the parity-plot statistic."""
+        return self.rates_hz(t_steps, dt_ms).mean(axis=0)
+
+
+def run_trials(
+    c: Connectome,
+    cfg: SimConfig,
+    t_steps: int,
+    sugar_neurons: np.ndarray | None = None,
+    seeds: int | Sequence[int] = 10,
+    syn: Any | None = None,
+    stimulus: Any | None = None,
+    probes: Any | None = None,
+    chunk_steps: int | None = None,
+    *,
+    device=None,
+    partitionable: bool = True,
+) -> TrialResult:
+    """Run one trial per seed as one batch of lanes.
+
+    ``seeds`` is either a trial count B (seeds 0..B-1) or an explicit
+    sequence.  Synaptic state and the stimulus are shared across trials;
+    each trial gets its own PRNG stream, exactly as ``simulate(...,
+    seed=s)`` would.  ``device`` defaults to CUDA and raises without it;
+    ``partitionable`` is the threefry mode (JAX's
+    ``jax_threefry_partitionable``).
+    """
+    if chunk_steps is not None:
+        raise NotImplementedError("chunk_steps (core/health.py) is not "
+                                  "ported to PyTorch yet")
+    if cfg.health is not None:
+        raise NotImplementedError("SimConfig.health is not ported yet")
+    device = resolve_device(device)
+    n = c.n
+    if syn is None:
+        syn = build_synapses(c, cfg, device)
+    stimulus = _resolve_stimulus(cfg, n, sugar_neurons, stimulus).to(device)
+    probes = _resolve_probes(cfg, probes)
+    carry, seeds = trial_carry(n, cfg, stimulus, seeds, device)
+    carry, records = run_steps(syn, carry, stimulus, cfg, probes, t_steps, n,
+                               partitionable=partitionable)
+    return TrialResult(counts=carry.counts, dropped=carry.dropped,
+                       state=carry.lif, records=records, seeds=seeds)
+
+
+class DistTrialResult(NamedTuple):
+    """Trial-batched distributed run; per-neuron data in original ids."""
+    counts: torch.Tensor   # [B, n_orig] int64 per-trial spike counts
+    dropped: torch.Tensor  # [B] int64, summed over the partitions
+    state: LIFState        # leaves [B, n_orig]
+    records: dict          # probe records, each [B, T, ...] (original ids)
+    stats: dict            # scheme counters, each [B]
+    seeds: tuple
+
+    def rates_hz(self, t_steps: int, dt_ms: float) -> np.ndarray:
+        """[B, n] per-trial per-neuron rates (float64, on the host)."""
+        return _rates_hz(self.counts, t_steps, dt_ms)
+
+    def mean_rates_hz(self, t_steps: int, dt_ms: float) -> np.ndarray:
+        """[n] trial-averaged rates: the parity-plot statistic."""
+        return self.rates_hz(t_steps, dt_ms).mean(axis=0)
+
+
+def run_dist_trials(
+    d,
+    cfg,
+    t_steps: int,
+    sugar_neurons: np.ndarray | None = None,
+    seeds: int | Sequence[int] = 10,
+    stimulus: Any | None = None,
+    probes: Any | None = None,
+    mesh=None,
+    emulate: bool = True,
+    *,
+    device=None,
+    partitionable: bool = True,
+) -> DistTrialResult:
+    """Distributed counterpart of :func:`run_trials`: the partitions
+    emulated on one device, each running every lane of the seed batch,
+    bitwise equal to a loop of
+    :func:`repro_torch.core.simulate_distributed` over the same seeds.
+    ``d`` is a :class:`repro_torch.core.dcsr.DCSR`, ``cfg`` a
+    :class:`repro_torch.core.distributed.DistConfig`."""
+    from repro_torch.core.distributed import (_assemble, make_core_mesh,
+                                              run_partitioned)
+    if not emulate or mesh is not None:
+        make_core_mesh(d.n_parts)
+    seeds = _seed_tuple(seeds)
+    device = resolve_device(device)
+    # keys[p, b] = what simulate_distributed(seed=seeds[b]) hands part p
+    keys = torch.stack(
+        [prng.split(prng.PRNGKey(s, device=device), d.n_parts,
+                    partitionable=partitionable) for s in seeds],
+        dim=1)                                           # [P, B, 2]
+    carries, records, owner = run_partitioned(
+        d, cfg, t_steps, keys, sugar_neurons, stimulus, probes, device,
+        partitionable)
+    counts, dropped, state, recs, stats = _assemble(d, carries, records,
+                                                    owner)
+    return DistTrialResult(counts=counts, dropped=dropped, state=state,
+                           records=recs, stats=stats, seeds=seeds)
+
+
+__all__ = ["DistTrialResult", "TrialResult", "run_dist_trials", "run_trials",
+           "trial_carry"]

@@ -13,6 +13,8 @@
 //   spk     [n_sb + 1, SRC_BLK]         float32 spikes by source block
 //   nspk    [n_sb + 1]                  int32   spikes per source block, the
 //                                               gate: a block is live iff > 0
+// spk and nspk are one lane's: a kernel over a trial batch's lanes hands
+// each CUDA block its own lane's rows (blockIdx.y), and the store is shared.
 //
 // block_sum() gives thread t of the CUDA block that owns target block tb
 //   sum over the slots e of tb whose source block sb = blk_id[tb, e] is

@@ -21,6 +21,11 @@
 //
 // The LIF inputs are loaded before delivery starts, so their latency hides
 // behind it; the epilogue is lif.cuh's step, unchanged.
+//
+// Lanes: as spike_deliver.cu, one launch a step for the B lanes of a trial
+// batch on a grid of (target block, lane); the state, the channels and the
+// outputs are [B, n_tb, 128], the spikes [B, n_sb + 1, 128]; B = 1 is the
+// single run.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -49,8 +54,9 @@ __global__ void __launch_bounds__(deliver::BLK, deliver::MIN_BLOCKS)
                              lif::F32Params pf, lif::FxParams px) {
   using S = std::conditional_t<FX, int32_t, float>;
   __shared__ __align__(16) deliver::Scratch sh;
+  const size_t lane = blockIdx.y;
   const size_t r =
-      static_cast<size_t>(blockIdx.x) * deliver::BLK + threadIdx.x;
+      (lane * gridDim.x + blockIdx.x) * deliver::BLK + threadIdx.x;
 
   // the LIF inputs, in flight while the block delivers
   S v = static_cast<const S*>(v_in)[r];
@@ -60,8 +66,9 @@ __global__ void __launch_bounds__(deliver::BLK, deliver::MIN_BLOCKS)
   const S vi = vin ? static_cast<const S*>(vin)[r] : S(0);
   const bool f = force ? force[r] != 0 : false;
 
-  const float acc =
-      deliver::block_sum(blk_id, weights, spk, nspk, E, n_sb, sh);
+  const float acc = deliver::block_sum(
+      blk_id, weights, spk + lane * (n_sb + 1) * deliver::BLK,
+      nspk + lane * (n_sb + 1), E, n_sb, sh);
 
   const float g_units = gstim ? lif::ftz(__fadd_rn(acc, lif::ftz(gs))) : acc;
   bool spike;
@@ -83,7 +90,7 @@ extern "C" int fused_deliver_lif_launch(
     const void* blk_id, const void* weights, const void* spk, const void* nspk,
     const void* v, const void* g, const void* refrac, const void* gstim,
     const void* vin, const void* force, void* v_out, void* g_out,
-    void* refrac_out, void* spk_out, int n_tb, int E, int n_sb,
+    void* refrac_out, void* spk_out, int n_tb, int E, int n_sb, int lanes,
     int fixed_point, float w_scale, float alpha_m, float v0, float decay_g,
     float v_th, float v_r, int fx_v0, int fx_alpha_m16, int fx_gdecay16,
     int fx_v_th, int fx_v_r, int ref_steps, void* stream) {
@@ -92,8 +99,9 @@ extern "C" int fused_deliver_lif_launch(
                          fx_v_th, fx_v_r, ref_steps};
   auto kernel = fixed_point ? fused_deliver_lif_kernel<true>
                             : fused_deliver_lif_kernel<false>;
-  if (n_tb > 0) {
-    kernel<<<n_tb, deliver::BLK, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n_tb > 0 && lanes > 0) {
+    kernel<<<dim3(n_tb, lanes), deliver::BLK, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(blk_id),
         static_cast<const int16_t*>(weights), static_cast<const float*>(spk),
         static_cast<const int32_t*>(nspk), v, g,

@@ -202,44 +202,49 @@ def build_blocked_sharded(d, device=None) -> ShardedBlockedSynapses:
 
 
 def spike_blocks(spikes: torch.Tensor, n: int, n_sb: int) -> torch.Tensor:
-    """[n] bool/float spikes -> [n_sb+1, SRC_BLK] float32 blocks with a
-    trailing zero pad block.  Both kernels also take the per-block counts
-    as their gate: see :func:`pad_spike_blocks`."""
-    out = torch.zeros((n_sb + 1) * SRC_BLK, dtype=torch.float32,
+    """[..., n] bool/float spikes -> [..., n_sb+1, SRC_BLK] float32 blocks
+    with a trailing zero pad block (a trial batch's ``[B, n]`` gives the
+    kernels' lane axis).  Both kernels also take the per-block counts as
+    their gate: see :func:`pad_spike_blocks`."""
+    lead = spikes.shape[:-1]
+    out = torch.zeros(lead + ((n_sb + 1) * SRC_BLK,), dtype=torch.float32,
                       device=spikes.device)
-    out[:n] = spikes.to(torch.float32)
-    return out.reshape(n_sb + 1, SRC_BLK)
+    out[..., :n] = spikes.to(torch.float32)
+    return out.reshape(lead + (n_sb + 1, SRC_BLK))
 
 
 def pad_spike_blocks(spikes: torch.Tensor, n: int, n_sb: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Spike blocks plus their [n_sb+1] int32 per-block spike counts."""
+    """Spike blocks plus their [..., n_sb+1] int32 per-block spike
+    counts."""
     spk_pad = spike_blocks(spikes, n, n_sb)
-    return spk_pad, spk_pad.sum(dim=1).to(torch.int32)
+    return spk_pad, spk_pad.sum(dim=-1).to(torch.int32)
 
 
 def fused_step(blk_id, weights, spk_pad, nspk, lif: LIFState, drive, n: int,
                params: LIFParams, fixed_point: bool
                ) -> tuple[LIFState, torch.Tensor]:
-    """Run the fused delivery->LIF kernel on an [n]-neuron LIF state, with
-    the spike blocks and counts of :func:`pad_spike_blocks`.
+    """Run the fused delivery->LIF kernel on an [..., n]-neuron LIF state
+    (a trial batch's ``[B, n]``: one launch for the B lanes), with the
+    spike blocks and counts of :func:`pad_spike_blocks` for the same lanes.
 
-    Pads the state and the drive channels to [n_tb, TGT_BLK] row blocks,
-    calls :func:`fused_deliver_lif` and unpads.  ``None`` channels stay
-    ``None``.  The fixed-point ``v_mv`` -> weight-unit conversion happens
-    here, as ``apply_drive`` does it on the unfused path (an IEEE division
-    by a float32 tensor, then round half to even).
+    Pads the state and the drive channels to [..., n_tb, TGT_BLK] row
+    blocks, calls :func:`fused_deliver_lif` and unpads.  ``None`` channels
+    stay ``None``.  The fixed-point ``v_mv`` -> weight-unit conversion
+    happens here, as ``apply_drive`` does it on the unfused path (an IEEE
+    division by a float32 tensor, then round half to even).
 
-    Returns ``(LIFState, spikes [n] bool)``.
+    Returns ``(LIFState, spikes [..., n] bool)``.
     """
     n_tb = blk_id.shape[0]
     rows = n_tb * TGT_BLK
+    lead = lif.v.shape[:-1]
     sdt = torch.int32 if fixed_point else torch.float32
 
     def rowblk(x, dtype):
-        out = torch.zeros(rows, dtype=dtype, device=x.device)
-        out[:n] = x.to(dtype)
-        return out.reshape(n_tb, TGT_BLK)
+        out = torch.zeros(lead + (rows,), dtype=dtype, device=x.device)
+        out[..., :n] = x.to(dtype)
+        return out.reshape(lead + (n_tb, TGT_BLK))
 
     gstim = None if drive.g_units is None else rowblk(drive.g_units,
                                                       torch.float32)
@@ -255,18 +260,18 @@ def fused_step(blk_id, weights, spk_pad, nspk, lif: LIFState, drive, n: int,
         fixed_point=fixed_point)
 
     def unblk(x):
-        return x.reshape(-1)[:n]
+        return x.reshape(lead + (rows,))[..., :n]
     return (LIFState(v=unblk(v), g=unblk(g), refrac=unblk(refrac)),
             unblk(spk) != 0)
 
 
 def spike_deliver(bs: BlockedSynapses, spikes: torch.Tensor) -> torch.Tensor:
-    """spikes: [n] bool/float on the store's device.  Returns g drive [n]
-    float32 (the standalone entry point; the ``blocked`` engine calls the
-    kernel wrapper directly)."""
+    """spikes: [..., n] bool/float on the store's device.  Returns g drive
+    [..., n] float32 (the standalone entry point; the ``blocked`` engine
+    calls the kernel wrapper directly)."""
     spk_pad, nspk = pad_spike_blocks(spikes, bs.n, bs.n_sb)
     out = spike_deliver_tiles(bs.blk_id, bs.weights, spk_pad, nspk)
-    return out.reshape(-1)[:bs.n]
+    return out.reshape(spikes.shape[:-1] + (-1,))[..., :bs.n]
 
 
 __all__ = ["BlockedSynapses", "ShardedBlockedSynapses", "build_blocked",

@@ -10,10 +10,13 @@ this module reproduces those functions exactly, in both settings of JAX's
 default of jax 0.5 and later).
 
 A key is a ``[2]`` int64 tensor holding the two uint32 words, on whatever
-device the caller keeps it; every function here stays on that device and
-never reads a value back to the host.  Words are held in int64 and masked
-to 32 bits after each add and shift, because PyTorch's uint32 dtype lacks
-most arithmetic.
+device the caller keeps it; a batch of keys is ``[..., 2]`` (a trial
+batch's ``[B, 2]``), and every function then draws for each key what it
+draws for that key alone, along leading axes of its result, as the
+reference does under ``vmap``.  Every function here stays on the keys'
+device and never reads a value back to the host.  Words are held in
+int64 and masked to 32 bits after each add and shift, because PyTorch's
+uint32 dtype lacks most arithmetic.
 """
 
 from __future__ import annotations
@@ -47,23 +50,29 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     return x0, x1
 
 
+def _words(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A key's two words, ``[..., 1]`` each, to broadcast against counts."""
+    return key[..., 0, None], key[..., 1, None]
+
+
 def _hash_counts(key: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """``jax._src.prng.threefry_2x32``: hash a flat uint32 count vector by
-    pairing its first half with its second half (odd sizes pad a zero)."""
+    pairing its first half with its second half (odd sizes pad a zero);
+    ``[..., n]`` for keys ``[..., 2]``."""
     n = counts.shape[0]
     if n % 2:
         counts = torch.cat([counts, counts.new_zeros(1)])
     half = counts.shape[0] // 2
-    y0, y1 = threefry2x32(key[0], key[1], counts[:half], counts[half:])
-    return torch.cat([y0, y1])[:n]
+    y0, y1 = threefry2x32(*_words(key), counts[:half], counts[half:])
+    return torch.cat([y0, y1], dim=-1)[..., :n]
 
 
 def _hash_iota(key: torch.Tensor, size: int) -> tuple[torch.Tensor,
                                                       torch.Tensor]:
     """Partitionable mode: hash each flat index ``i`` as the 64-bit count
-    ``(hi, lo) = (i >> 32, i & 0xFFFFFFFF)``."""
+    ``(hi, lo) = (i >> 32, i & 0xFFFFFFFF)``; ``[..., size]`` each."""
     i = torch.arange(size, dtype=torch.int64, device=key.device)
-    return threefry2x32(key[0], key[1], i >> 32, i & _MASK)
+    return threefry2x32(*_words(key), i >> 32, i & _MASK)
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
@@ -76,16 +85,17 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 def split(key: torch.Tensor, num: int = 2, *,
           partitionable: bool = True) -> torch.Tensor:
-    """``jax.random.split(key, num)`` -> ``[num, 2]`` keys."""
+    """``jax.random.split(key, num)`` -> ``[..., num, 2]`` keys."""
     if partitionable:
-        return torch.stack(_hash_iota(key, num), dim=1)
+        return torch.stack(_hash_iota(key, num), dim=-1)
     counts = torch.arange(2 * num, dtype=torch.int64, device=key.device)
-    return _hash_counts(key, counts).reshape(num, 2)
+    return _hash_counts(key, counts).reshape(key.shape[:-1] + (num, 2))
 
 
 def random_bits(key: torch.Tensor, shape: tuple[int, ...], *,
                 partitionable: bool = True) -> torch.Tensor:
-    """32-bit ``jax.random.bits`` of ``shape`` (as int64 words)."""
+    """32-bit ``jax.random.bits`` of ``shape`` (as int64 words);
+    ``[..., *shape]`` for keys ``[..., 2]``."""
     size = math.prod(shape)
     if size >= _MASK:
         raise NotImplementedError("more than 2**32 - 1 draws from one key")
@@ -95,7 +105,7 @@ def random_bits(key: torch.Tensor, shape: tuple[int, ...], *,
     else:
         counts = torch.arange(size, dtype=torch.int64, device=key.device)
         bits = _hash_counts(key, counts)
-    return bits.reshape(shape)
+    return bits.reshape(key.shape[:-1] + tuple(shape))
 
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...], *,

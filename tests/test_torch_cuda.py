@@ -452,3 +452,175 @@ def test_distributed_schemes_agree_on_the_card(cuda, n_parts, fx):
         assert torch.equal(r.raster.cpu(), cpu.raster), label
         assert torch.equal(r.records["pop_rate_hz"].cpu(),
                            cpu.records["pop_rate_hz"]), label
+
+
+def _lane_spikes(n, fracs, rng, dev):
+    """[B, n] spikes, lane b spiking a fraction fracs[b] (own draws)."""
+    return torch.from_numpy(np.stack([rng.random(n) < f for f in fracs])
+                            ).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_kernels_lane_batch_match_plain(cuda, quantized):
+    """Both kernels at B = 3 lanes (silent, 2% and 30% spiking) in one
+    launch each: bitwise equal to their plain versions, and lane b equal
+    to the single-lane call on lane b's spikes and state (tolerance 0)."""
+    c = synthetic_flywire(1800, seed=2)
+    w = np.clip(c.in_weights, -256, 255) if quantized else None
+    bs = ops.build_blocked(c, w, cuda)
+    rng = np.random.default_rng(1)
+    spk, nspk = ops.pad_spike_blocks(
+        _lane_spikes(c.n, (0.0, 0.02, 0.3), rng, cuda), bs.n, bs.n_sb)
+    assert spk.shape == (3, bs.n_sb + 1, 128) and nspk.shape == (3,
+                                                                 bs.n_sb + 1)
+    store = (bs.blk_id, bs.weights)
+    K.reset_launches()
+    a = K.spike_deliver_tiles(*store, spk, nspk)
+    assert K.LAUNCHES["spike_deliver"] == 1 and a.shape == (3, bs.n_tb, 128)
+    assert torch.equal(a, K.spike_deliver_plain(*store, spk, nspk))
+    for b in range(3):
+        assert torch.equal(a[b], K.spike_deliver_tiles(*store, spk[b],
+                                                       nspk[b]))
+    for fx in (False, True):
+        lanes = [_rows(bs.n_tb, fx, rng, cuda) for _ in range(3)]
+        state = [torch.stack([ln[0][i] for ln in lanes]) for i in range(3)]
+        stim = [torch.stack([ln[1][i] for ln in lanes]) for i in range(3)]
+        for channels in ((0, 0, 0), (1, 1, 1), (0, 1, 0)):
+            ch = [x if on else None for x, on in zip(stim, channels)]
+            kw = dict(params=P, fixed_point=fx)
+            K.reset_launches()
+            out = K.fused_deliver_lif(*store, spk, nspk, *state, *ch, **kw)
+            assert K.LAUNCHES["fused_deliver_lif"] == 1
+            plain = K.fused_deliver_lif_plain(*store, spk, nspk, *state, *ch,
+                                              **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(out, plain)), (
+                fx, channels)
+            for b in range(3):
+                one = K.fused_deliver_lif(
+                    *store, spk[b], nspk[b], *(x[b] for x in state),
+                    *(None if x is None else x[b] for x in ch), **kw)
+                assert all(torch.equal(x[b], y) for x, y in zip(out, one))
+
+
+@pytest.mark.cuda
+def test_lane_batch_of_one_is_the_single_call(cuda):
+    """B = 1 gives the single-lane call's result bit for bit."""
+    c = synthetic_flywire(1800, seed=2)
+    bs = ops.build_blocked(c, None, cuda)
+    rng = np.random.default_rng(2)
+    spk, nspk = ops.pad_spike_blocks(_lane_spikes(c.n, (0.05,), rng, cuda),
+                                     bs.n, bs.n_sb)
+    store = (bs.blk_id, bs.weights)
+    assert torch.equal(K.spike_deliver_tiles(*store, spk, nspk)[0],
+                       K.spike_deliver_tiles(*store, spk[0], nspk[0]))
+    for fx in (False, True):
+        state, stim = _rows(bs.n_tb, fx, rng, cuda)
+        kw = dict(params=P, fixed_point=fx)
+        one = K.fused_deliver_lif(*store, spk[0], nspk[0], *state, *stim,
+                                  **kw)
+        batch = K.fused_deliver_lif(*store, spk, nspk,
+                                    *(x[None] for x in state),
+                                    *(x[None] for x in stim), **kw)
+        assert all(torch.equal(x[0], y) for x, y in zip(batch, one))
+
+
+@pytest.mark.cuda
+def test_delivery_kernels_keep_nine_blocks_an_sm(cuda):
+    """With the lane axis both delivery kernels still fit 9 resident blocks
+    of 128 threads an SM: at most 56 registers a thread and 19,216 B of
+    shared memory a block (cuobjdump counts the 1 KB the card reserves for
+    each block)."""
+    import os
+    import re
+    import subprocess
+    from repro_torch.kernels import build
+    build.build(list(K.SOURCES.values()))
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    for name, src in K.SOURCES.items():
+        res = subprocess.run(
+            [cuobjdump, "-res-usage", build.library_path(src)], check=True,
+            capture_output=True, text=True, timeout=300).stdout
+        use = [(int(r), int(s)) for r, s in re.findall(
+            r"REG:(\d+) STACK:\d+ SHARED:(\d+)", res)]
+        assert use, res
+        assert all(r <= 56 and s <= 19_216 + 1_024 for r, s in use), (name,
+                                                                      use)
+
+
+@pytest.mark.cuda
+def test_run_trials_on_the_card(cuda):
+    """run_trials at B = 3 through csr, event, blocked and blocked_fused,
+    bitwise equal to each other and to the CPU run, each delivery kernel
+    launched once a step for all three lanes."""
+    from repro_torch.exp import run_trials
+    c = synthetic_flywire(n=1500, target_synapses=45_000, seed=3)
+    kw = dict(fixed_point=True, quantize_bits=9, poisson_to_v=False)
+    probes = ProbeSpec(raster=True, pop_rate=True, voltage=(0, 7, 1499))
+    T, seeds = 200, (0, 5, 9)
+
+    def run(engine, dev):
+        cfg = SimConfig(engine=engine, **kw)
+        K.reset_launches()
+        return run_trials(c, cfg, T, seeds=seeds, probes=probes, device=dev,
+                          stimulus=build_scenario("sugar_feeding", c, cfg,
+                                                  background_hz=20.0))
+    cpu = run("csr", "cpu")
+    assert all(int(x.sum()) > 0 for x in cpu.counts)
+    for engine in ("csr", "event", "blocked", "blocked_fused"):
+        r = run(engine, cuda)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == {
+            "spike_deliver": T if engine == "blocked" else 0,
+            "fused_deliver_lif": T if engine == "blocked_fused" else 0}
+        assert torch.equal(r.counts.cpu(), cpu.counts), engine
+        assert torch.equal(r.dropped.cpu(), cpu.dropped), engine
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(r.state,
+                                                            cpu.state))
+        for k, v in cpu.records.items():
+            assert torch.equal(r.records[k].cpu(), v), (engine, k)
+
+
+@pytest.mark.cuda
+def test_run_dist_trials_on_the_card(cuda):
+    """run_dist_trials at P = 3 (16 pad neurons), B = 2: the four scheme
+    variants bitwise equal to each other and to the CPU run, tile counters
+    per lane equal, one kernel launch per partition and step."""
+    from repro_torch.core import DistConfig, build_dcsr, even_partition
+    from repro_torch.exp import run_dist_trials
+    c = synthetic_flywire(20_000, seed=2)
+    d = build_dcsr(c, even_partition(c, 3), quantize_bits=9)
+    sim = SimConfig(engine="csr", quantize_bits=9, fixed_point=True,
+                    poisson_to_v=False)
+    stim = build_scenario("sugar_feeding", c, sim, background_hz=20.0)
+    T = 40
+
+    def run(scheme, engine, dev):
+        K.reset_launches()
+        return run_dist_trials(
+            d, DistConfig(sim=dataclasses.replace(sim, engine=engine),
+                          scheme=scheme), T, seeds=(3, 4), stimulus=stim,
+            probes=ProbeSpec(raster=True), device=dev)
+    cpu = run("bitmap", "csr", "cpu")
+    assert all(int(x.sum()) > 0 for x in cpu.counts)
+    out = {}
+    for label, scheme, engine in (("bitmap", "bitmap", "csr"),
+                                  ("event", "event", "csr"),
+                                  ("blocked", "blocked", "csr"),
+                                  ("blocked_fused", "blocked",
+                                   "blocked_fused")):
+        out[label] = r = run(scheme, engine, cuda)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == {
+            "spike_deliver": 3 * T if label == "blocked" else 0,
+            "fused_deliver_lif": 3 * T if label == "blocked_fused" else 0}
+        assert torch.equal(r.counts.cpu(), cpu.counts), label
+        assert torch.equal(r.dropped.cpu(), cpu.dropped), label
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(r.state,
+                                                            cpu.state))
+        assert torch.equal(r.records["raster"].cpu(), cpu.records["raster"])
+    for k in ("tiles_live", "tiles_skipped"):
+        assert out["blocked"].stats[k].shape == (2,)
+        assert torch.equal(out["blocked"].stats[k],
+                           out["blocked_fused"].stats[k])

@@ -82,3 +82,44 @@ def test_bernoulli(mode, p):
 def test_seed_out_of_range():
     with pytest.raises(ValueError):
         prng.PRNGKey(2**31)
+
+
+def _key_batch(lead: tuple) -> tuple[jax.Array, torch.Tensor]:
+    """A ``lead + (2,)`` batch of keys, from the seeds in order."""
+    seeds = [SEEDS[i % len(SEEDS)] // 2 + i
+             for i in range(int(np.prod(lead)))]
+    jk = jax.numpy.stack([jax.random.PRNGKey(s) for s in seeds])
+    tk = torch.stack([prng.PRNGKey(s) for s in seeds])
+    return jk.reshape(lead + (2,)), tk.reshape(lead + (2,))
+
+
+@pytest.mark.parametrize("lead", [(1,), (3,), (4, 3)],
+                         ids=["B1", "B3", "P4xB3"])
+def test_batched_keys_draw_per_key(mode, lead):
+    """Keys [..., 2] draw along leading axes exactly what each key draws
+    alone, as the reference's functions do under vmap: split, bits,
+    uniform and bernoulli."""
+    jk, tk = _key_batch(lead)
+    flat = tk.reshape(-1, 2)
+    calls = {
+        "split": (lambda k: prng.split(k, 5, partitionable=mode),
+                  lambda k: jax.random.split(k, 5)),
+        "bits": (lambda k: prng.random_bits(k, (3, 7), partitionable=mode),
+                 lambda k: jax.random.bits(k, (3, 7), dtype=np.uint32)),
+        "uniform": (lambda k: prng.uniform(k, (9,), partitionable=mode)
+                    .view(torch.int32),
+                    lambda k: jax.random.uniform(k, (9,)).view(np.int32)),
+        "bernoulli": (lambda k: prng.bernoulli(k, 0.3, (1500,),
+                                               partitionable=mode),
+                      lambda k: jax.random.bernoulli(k, 0.3, (1500,))),
+    }
+    for name, (port_fn, ref_fn) in calls.items():
+        got = port_fn(tk)
+        per_key = torch.stack([port_fn(k) for k in flat])
+        assert got.shape == lead + per_key.shape[1:], name
+        assert torch.equal(got.reshape(per_key.shape), per_key), name
+        ref = ref_fn
+        for _ in lead:
+            ref = jax.vmap(ref)
+        np.testing.assert_array_equal(_np(ref(jk)), _np(got.numpy()),
+                                      err_msg=name)
