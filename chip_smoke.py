@@ -7,7 +7,7 @@ CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``src/repro_torch`` with nvcc and holds each
-kernel against its plain PyTorch version, then drives four paths:
+kernel against its plain PyTorch version, then drives these paths:
 
 * ``simulate()`` on the full synthetic FlyWire network (139,255 neurons,
   15M synapses, the paper's Q19.12 configuration with 9-bit weights,
@@ -27,6 +27,18 @@ kernel against its plain PyTorch version, then drives four paths:
   partition's kernel output held against its plain version; and
   ``run_dist_trials()`` of 3 seeds through the same four, bitwise equal
   to each other and (``bitmap``) to ``simulate_distributed()`` per seed;
+* on the same network, every scenario of the catalog through
+  ``blocked_fused`` against ``csr`` (``background_storm``, ~2% of the
+  neurons spiking a step, profiled, both delivery kernels timed at its
+  spikes), and the main path in chunks, with telemetry and with
+  checkpoints, bitwise equal to one run;
+* the simulation CLI, ``python -m repro_torch.launch.simulate --scale
+  full``, as a program (one run, a run killed after two chunks and its
+  resume, a ``csr`` run: one digest; its telemetry stream checked and
+  reported) and in process through ``main(argv)`` (a kill and resume
+  with background checkpoint writes, the ``blocked`` engine, and the
+  partitioned CLI at P = 12 unchunked and killed and resumed: one digest
+  each), with the delivery kernels' launches counted;
 * the LIF kernels' entry points (``kernels.lif.lif_update`` and
   ``lif_update_fx``) for 1,000 steps at FlyWire size, checked bitwise
   against their plain versions;
@@ -41,9 +53,11 @@ Both delivery kernels are also timed on the full FlyWire store with
 product of the same spikes, and with B = 10 lanes of spikes in one
 launch (the trials run's, and 0.1% and 1% per lane) beside the CSR
 product with the dense [n, 10] spike matrix.  Every phase raises on
-failure; nothing is caught.  The last lines are a JSON line of those
-activity cases, a JSON line of kernel measurements, the card's name and
-power limit, and ``{"ok": true, "device": ...}``.
+failure; nothing is caught.  The last lines are a JSON line of the
+supervision and scenario numbers, a JSON line of those activity cases
+(``background_storm``'s spikes among them), a JSON line of kernel
+measurements, the card's name and power limit, and ``{"ok": true,
+"device": ...}``.
 
 It imports PyTorch, numpy and the port (``src/repro_torch``), and nothing
 of JAX.
@@ -86,6 +100,18 @@ DIST_RUNS = {"bitmap": ("bitmap", None), "event": ("event", None),
              "blocked": ("blocked", None),
              "blocked_fused": ("blocked", "blocked_fused")}
 ACTIVITY = (0.001, 0.01, 1.0)   # fractions of the neurons spiking a step
+T_SUPERVISE = 1000              # chunked / telemetry / checkpoint runs
+SUPERVISE_CHUNK = 125
+SUPERVISE_REPS = 3              # one chunk and chunked, alternated
+T_SUPERVISE_TRACE = 100         # profiled in one chunk and in chunks of
+SUPERVISE_TRACE_CHUNK = 25      # this many steps
+T_SCENARIO = 200                # each of the seven scenarios
+T_STORM_TRACE = 20
+CLI_SCALE = "full"              # the CLI's --scale: full FlyWire
+CLI_T_MS = 100.0                # the CLI's full-size run: 1,000 steps
+CLI_CHUNK = 250
+CLI_DIST_T_MS = 10.0            # the partitioned CLI: 100 steps at P = 12
+CLI_DIST_CHUNK = 25
 # 9 resident blocks of 128 threads an SM: 65,536 / (9 x 128) registers a
 # thread, rounded down to the allocation's multiple of 8; 19,216 B of
 # shared memory a block, which cuobjdump reports with the 1 KB the card
@@ -753,11 +779,12 @@ def timed(fn, match: str) -> tuple[float, str]:
     return kernel_device_ms(fn, 200, match), "profiler device time"
 
 
-def activity_case(syn, refs, frac, state, kw, smi, A):
+def activity_case(syn, refs, frac, state, kw, smi, A, s=None, case=None):
     """Both delivery kernels on the full store with a fraction ``frac`` of
     the neurons spiking (Bernoulli draws from numpy seed 0; 1.0 is every
-    neuron): each bitwise against its plain version once, then timed
-    beside its byte bound (`delivery_bytes`, counted for these spikes);
+    neuron), or with the given spikes ``s`` of a run (``case`` names it):
+    each bitwise against its plain version once, then timed beside its
+    byte bound (`delivery_bytes`, counted for these spikes);
     `spike_deliver` also beside the library call on the same spikes, the
     torch.sparse CSR product ``A @ s`` (CUDA events, 5 calls; its result
     must equal the kernel's)."""
@@ -765,7 +792,10 @@ def activity_case(syn, refs, frac, state, kw, smi, A):
     import torch
     from repro_torch.kernels.spike_prop import kernel as K
     from repro_torch.kernels.spike_prop.ops import pad_spike_blocks
-    s = np.random.default_rng(0).random(syn.n) < frac
+    if s is None:
+        s = np.random.default_rng(0).random(syn.n) < frac
+    else:
+        frac = float(s.mean())
     spk, nspk = pad_spike_blocks(torch.from_numpy(s).to(DEVICE), syn.n,
                                  syn.n_sb)
     store = (syn.blk_id, syn.weights, spk, nspk)
@@ -783,7 +813,7 @@ def activity_case(syn, refs, frac, state, kw, smi, A):
         torch.cuda.synchronize()
         err = max(max_abs_err(x, y) for x, y in zip(a, b))
         check(equal_all(a, b), f"{name} != plain with {frac:.1%} of the "
-              f"neurons spiking on the full store: max |err| {err}")
+              f"neurons spiking ({case}) on the full store: max |err| {err}")
         del a, b
         ms, how = timed(fn, f"{name}_kernel")
         cols, nbytes = delivery_bytes(syn.blk_id, syn.n_sb, refs, spk, nspk,
@@ -800,13 +830,14 @@ def activity_case(syn, refs, frac, state, kw, smi, A):
             lib_note = (f"; torch.sparse CSR mv {lib_ms:.5f} ms (CUDA "
                         f"events), the kernel {lib_ms / ms:.2f}x as fast")
             del lib, out_k
-        print(f"{name} with {frac:.1%} spiking ({int(s.sum())} neurons, "
+        what = f"{frac:.1%} spiking" + (f", {case}" if case else "")
+        print(f"{name} with {what} ({int(s.sum())} neurons, "
               f"{int((nspk[:syn.n_sb] > 0).sum())} live source blocks, "
               f"{cols} spiking columns of stored tiles): {ms:.5f} ms/call "
               f"({how}), bound {bound:.5f} ms ({nbytes} B), "
               f"{ms / bound:.2f}x the bound{lib_note}; bitwise equal to "
               f"plain; card {smi}", flush=True)
-        out.append({"kernel": name, "spiking": frac, "ms": ms,
+        out.append({"kernel": name, "spiking": frac, "case": case, "ms": ms,
                     "timed_by": how, "bound_ms": bound, "library_ms": lib_ms,
                     "max_abs_err": err})
     return out
@@ -1792,6 +1823,387 @@ def phase_distributed(c, stim, smi):
     return yard, launches, ms, trials
 
 
+WORK_DIR = os.path.join("build", "chip_smoke")   # under the checkout
+
+
+def work_dir(name: str) -> str:
+    """An empty directory for ``name`` under build/chip_smoke/."""
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, WORK_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+@phase("supervision at full size: chunks, telemetry, checkpoints")
+def phase_supervision(c, cfg, stim, syn, smi):
+    """The main path's run in one chunk and in chunks of SUPERVISE_CHUNK
+    steps, alternated SUPERVISE_REPS times (medians and spread of the
+    host clock), then chunked with a telemetry session and with
+    synchronous and background checkpoints: all bitwise equal (counts,
+    state, dropped).  Both forms are profiled over T_SUPERVISE_TRACE
+    steps (device ops and busy time a step), so the cost of a chunk
+    boundary is counted rather than read off the host clock.  Then, each
+    on its own, a checkpoint save and restore of the full carry and what
+    a telemetry session does at a chunk boundary."""
+    import statistics
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import init_carry, simulate
+    from repro_torch.core.health import SimCheckpointer, carry_counters
+    from repro_torch.exp import ProbeSpec
+    from repro_torch.train.checkpoint import flatten
+    work = work_dir("supervision")
+    T, K_ = T_SUPERVISE, SUPERVISE_CHUNK
+
+    def run(label, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulate(c, cfg, T, seed=0, syn=syn, stimulus=stim, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / T
+        print(f"{label}: {ms:.4f} ms/step over {T} steps, "
+              f"{int(res.counts.sum())} spikes", flush=True)
+        return res, ms
+    base, ms_whole, ms_chunk = None, [], []
+    for rep in range(SUPERVISE_REPS):
+        r, ms = run(f"one chunk, rep {rep}")
+        base = r if base is None else base
+        check(same_result(r, base), "a run in one chunk != the first")
+        ms_whole.append(ms)
+        r, ms = run(f"chunk_steps={K_}, rep {rep}", chunk_steps=K_)
+        check(same_result(r, base), "the chunked run != the one chunk")
+        ms_chunk.append(ms)
+    with obs.telemetry(os.path.join(work, "run.jsonl")):
+        teled, ms_tele = run(f"chunk_steps={K_} + telemetry", chunk_steps=K_)
+    synced, ms_ck = run(f"chunk_steps={K_} + checkpoints",
+                        chunk_steps=K_, checkpoint_dir=os.path.join(work, "a"))
+    backed, ms_ck_async = run(f"chunk_steps={K_} + background checkpoints",
+                              chunk_steps=K_, async_checkpoint=True,
+                              checkpoint_dir=os.path.join(work, "b"))
+    for label, r in (("telemetry", teled), ("checkpoints", synced),
+                     ("background", backed)):
+        check(same_result(r, base), f"{label} run != the one chunk")
+    del teled, synced, backed
+
+    # device work a step, in one chunk and in chunks of
+    # SUPERVISE_TRACE_CHUNK: the difference is what the boundaries add.
+    # The host's launch / copy / memset calls are counted from the
+    # profiler's runtime records, which it keeps whole (it may drop
+    # device records, so those give the busy time, not the count).
+    Tp, Kp = T_SUPERVISE_TRACE, SUPERVISE_TRACE_CHUNK
+    trace = {}
+    for label, chunk in (("one chunk", None), (f"chunk_steps={Kp}", Kp)):
+        def go():
+            simulate(c, cfg, Tp, seed=0, syn=syn, stimulus=stim,
+                     probes=ProbeSpec(), chunk_steps=chunk)
+        go()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        busy = sum(e.time_range.end - e.time_range.start for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        issued = sum(1 for e in events
+                     if re.match(r"cu(da)?(Launch|Memcpy|Memset)", e.name))
+        trace[label] = {"wall_ms_per_step": wall / Tp,
+                        "busy_ms_per_step": busy / Tp,
+                        "issued_per_step": issued / Tp, "issued": issued}
+        print(f"supervision trace, {label}, over {Tp} steps: "
+              f"{json.dumps(trace[label])}", flush=True)
+        check(busy > 0, f"{label}: the profiler recorded no device time")
+    one, cut = trace["one chunk"], trace[f"chunk_steps={Kp}"]
+    extra_ops = (cut["issued"] - one["issued"]) / (Tp // Kp - 1)
+
+    carry = init_carry(c.n, cfg, stim, 0, DEVICE)
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in flatten(carry).values()
+                 if isinstance(x, torch.Tensor))
+    ck = SimCheckpointer(os.path.join(work, "c"))
+    save_s, restore_s = [], []
+    for step in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(step, carry, {})
+        save_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back, _, _ = ck.restore_latest(carry)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+    check(all(torch.equal(a, b) for a, b in zip(
+        flatten(carry).values(), flatten(back).values())
+        if isinstance(a, torch.Tensor)), "a restored carry differs")
+    # what a telemetry session adds at a chunk boundary: the device
+    # drained, the counters reduced and fetched, one chunk event written
+    hook_ms = []
+    with obs.telemetry(os.path.join(work, "hooks.jsonl")) as tele:
+        for _ in range(20):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            counters = carry_counters(carry)
+            tele.emit("chunk", step=0, steps=K_, wall_s=0.0,
+                      steps_per_s=0.0, counters=counters, delta=counters)
+            hook_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"ms_one_chunk": statistics.median(ms_whole),
+           "ms_one_chunk_range": [min(ms_whole), max(ms_whole)],
+           "ms_chunked": statistics.median(ms_chunk),
+           "ms_chunked_range": [min(ms_chunk), max(ms_chunk)],
+           "trace_one_chunk": one, "trace_chunked": cut,
+           "issued_per_extra_boundary": extra_ops,
+           "telemetry_ms_per_chunk": sorted(hook_ms)[10],
+           "ms_telemetry": ms_tele, "ms_checkpoints": ms_ck,
+           "ms_background_checkpoints": ms_ck_async, "carry_bytes": nbytes,
+           "save_ms": min(save_s) * 1e3, "restore_ms": min(restore_s) * 1e3}
+    print(f"supervision over {T} steps: ms/step in one chunk "
+          f"{[round(x, 4) for x in ms_whole]} (median "
+          f"{out['ms_one_chunk']:.4f}), in chunks of {K_} "
+          f"{[round(x, 4) for x in ms_chunk]} (median "
+          f"{out['ms_chunked']:.4f}); + telemetry {ms_tele:.4f}, + "
+          f"checkpoints {ms_ck:.4f}, + background checkpoints "
+          f"{ms_ck_async:.4f}; all bitwise equal; traced over {Tp} steps: "
+          f"busy {one['busy_ms_per_step']:.4f} / "
+          f"{cut['busy_ms_per_step']:.4f} ms a step, device calls issued "
+          f"{one['issued']} / {cut['issued']} (one chunk / chunks of "
+          f"{Kp}), {extra_ops:.2f} a boundary; telemetry a chunk "
+          f"{out['telemetry_ms_per_chunk']:.3f} ms (median of 20); carry "
+          f"{nbytes} B; save {out['save_ms']:.3f} ms (min of 3: "
+          f"{[round(x * 1e3, 3) for x in save_s]}), restore "
+          f"{out['restore_ms']:.3f} ms "
+          f"({[round(x * 1e3, 3) for x in restore_s]}); card {smi}",
+          flush=True)
+    return out
+
+
+@phase("every scenario at full size (blocked_fused vs csr, Q19.12)")
+def phase_scenarios(c, cfg, syn, smi):
+    """Each of the seven scenarios of the port's catalog (the sugar
+    population from CONFIG, as the CLI takes it), T_SCENARIO steps through
+    blocked_fused and csr, bitwise equal (counts, state, dropped), the
+    fused kernel launched once a step; spikes a step and ms/step of each.
+    Then background_storm, the dense point: its device busy time a step
+    (profiler, T_STORM_TRACE steps once the ring delivers) and both
+    delivery kernels at the spikes of its last step, beside the
+    torch.sparse CSR mv."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.flywire import CONFIG
+    from repro_torch.core import build_synapses, init_carry, run_steps
+    from repro_torch.exp import (ProbeSpec, available_scenarios,
+                                 build_scenario, get_scenario)
+    from repro_torch.kernels.spike_prop.ops import pad_spike_blocks
+    csr_cfg = dataclasses.replace(cfg, engine="csr")
+    csr_syn = build_synapses(c, csr_cfg)
+    rows, storm, fused_launches = [], None, 0
+    for name in available_scenarios():
+        defaults = get_scenario(name).defaults
+        kw = {k: v for k, v in (("n_sugar", CONFIG.n_sugar),
+                                ("rate_hz", CONFIG.sugar_rate_hz))
+              if k in defaults}
+        stim = build_scenario(name, c, cfg, **kw)
+        probes = ProbeSpec(raster=name == "background_storm")
+        fused, ms_f, launches = run_engine(c, cfg, T_SCENARIO, stim, syn,
+                                           probes, f"{name} blocked_fused")
+        check(launches["fused_deliver_lif"] == T_SCENARIO,
+              f"{name}: fused kernel launched {launches} times")
+        fused_launches += launches["fused_deliver_lif"]
+        ref, ms_c, _ = run_engine(c, csr_cfg, T_SCENARIO, stim, csr_syn,
+                                  probes, f"{name} csr")
+        check(same_result(fused, ref), f"{name}: blocked_fused != csr")
+        spikes = int(fused.counts.sum())
+        rows.append({"scenario": name, "spikes_per_step": spikes / T_SCENARIO,
+                     "ms_per_step_blocked_fused": ms_f,
+                     "ms_per_step_csr": ms_c})
+        if name == "background_storm":
+            check(torch.equal(fused.raster, ref.raster), "storm raster")
+            storm = (stim, fused)
+        del fused, ref
+    del csr_syn
+    torch.cuda.empty_cache()
+    stim, fused = storm
+    # the trace starts in the steady state: the ring delivers nothing for
+    # the first delay_steps steps of a run
+    warm_steps = 2 * cfg.params.delay_steps
+    stim = stim.to(DEVICE)
+    warm, _ = run_steps(syn, init_carry(c.n, cfg, stim, 0, DEVICE), stim,
+                        cfg, ProbeSpec(), warm_steps, c.n)
+    wall_ms, kernels = device_profile(lambda: run_steps(
+        syn, warm, stim, cfg, ProbeSpec(), T_STORM_TRACE, c.n,
+        t0=warm_steps))
+    per_step = None if kernels is None else {
+        k: (ms / T_STORM_TRACE, n / T_STORM_TRACE)
+        for k, (ms, n) in kernels.items()}
+    print_breakdown(f"background_storm blocked_fused trace over "
+                    f"{T_STORM_TRACE} steps after {warm_steps}, per step",
+                    wall_ms / T_STORM_TRACE, per_step, top=6)
+    busy = (None if per_step is None
+            else sum(ms for ms, _ in per_step.values()))
+    # the spikes of the run's last step, as the kernels receive them
+    s = fused.raster[-1].cpu().numpy()
+    spk, nspk = pad_spike_blocks(fused.raster[-1], syn.n, syn.n_sb)
+    refs = torch.bincount(syn.blk_id.reshape(-1).long(),
+                          minlength=syn.n_sb + 1)[:syn.n_sb]
+    n_tb = syn.blk_id.shape[0]
+
+    def rowblk(x):
+        out = torch.zeros(n_tb * 128, dtype=x.dtype, device=DEVICE)
+        out[:syn.n] = x
+        return out.reshape(n_tb, 128)
+    state = tuple(rowblk(x) for x in fused.state)
+    A = sparse_matrix(c, cfg, DEVICE)
+    storm_rows = activity_case(syn, refs, None, state,
+                               dict(params=cfg.params,
+                                    fixed_point=cfg.fixed_point), smi, A,
+                               s=s.astype(bool), case="background_storm")
+    del A, fused, storm
+    torch.cuda.empty_cache()
+    print(f"scenarios: {json.dumps(rows)}; background_storm device busy "
+          f"{busy if busy is None else round(busy, 4)} ms a step; card {smi}",
+          flush=True)
+    return rows, busy, storm_rows, fused_launches
+
+
+def cli_lines(out: str) -> dict:
+    """The digest, kill and spike lines of the CLI's output."""
+    got = {}
+    for line in out.splitlines():
+        for key, head in (("digest", "[simulate] digest "),
+                          ("kill", "[simulate] injected kill"),
+                          ("spikes", "[simulate] mean total spikes")):
+            if line.startswith(head):
+                got[key] = line[len(head):] if key == "digest" else line
+    return got
+
+
+@phase("the CLI on full FlyWire (python -m repro_torch.launch.simulate)")
+def phase_cli(smi):
+    """The port's CLI at ``--scale full --fixed-point``: as a program, one
+    uninterrupted run in one chunk with telemetry, a run killed after two
+    chunks of CLI_CHUNK steps and its resume, and a csr run, all with the
+    same digest; the telemetry stream checked and reported.  Then in
+    process through ``main(argv)``: a kill and resume with background
+    checkpoint writes, the blocked engine, and the partitioned CLI (P =
+    12, the blocked scheme with the fused kernel) unchunked and killed
+    and resumed in chunks of CLI_DIST_CHUNK: each pair with one digest,
+    the kernels' launches counted."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.kernels.spike_prop import kernel as K
+    from repro_torch.launch import simulate as cli
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(here, "src")}
+    work = work_dir("cli")
+    tele = os.path.join(work, "run.jsonl")
+    full = ["--scale", CLI_SCALE, "--fixed-point", "--t-ms", str(CLI_T_MS),
+            "--digest"]
+    fused = full + ["--engine", "blocked_fused"]
+    steps = int(round(CLI_T_MS / 0.1))
+
+    def program(args, module="repro_torch.launch.simulate"):
+        if module.endswith("simulate"):
+            args = args + ["--device", DEVICE]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", module, *args], cwd=here,
+                           env=env, capture_output=True, text=True,
+                           timeout=900)
+        secs = time.perf_counter() - t0
+        print(f"$ python -m {module} {' '.join(args)}: exit {r.returncode}, "
+              f"{secs:.3f} s", flush=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"{module} failed:\n{r.stdout[-3000:]}\n"
+                               f"{r.stderr[-3000:]}")
+        for line in r.stdout.splitlines():
+            if line.startswith("[simulate] ") and "connectome:" not in line:
+                print(f"  {line}", flush=True)
+        return r.stdout, secs
+
+    def in_process(args, **kw):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(args + ["--device", DEVICE], **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"main({' '.join(args)}): {secs:.3f} s", flush=True)
+        for line in buf.getvalue().splitlines():
+            if line.startswith("[simulate] ") and "connectome:" not in line:
+                print(f"  {line}", flush=True)
+        torch.cuda.empty_cache()
+        return cli_lines(buf.getvalue()), secs
+
+    out, secs_whole = program(fused + ["--chunk-steps", str(steps),
+                                       "--telemetry", tele])
+    whole = cli_lines(out)
+    check("digest" in whole, "no digest line")
+    ck = ["--chunk-steps", str(CLI_CHUNK), "--checkpoint-dir",
+          os.path.join(work, "ck")]
+    out, _ = program(fused + ck + ["--inject-fail-at-chunk", "2"])
+    check(set(cli_lines(out)) == {"kill"}, "the killed run printed a result")
+    out, secs_resume = program(fused + ck + ["--resume"])
+    check(cli_lines(out) == whole, "resumed digest != uninterrupted digest")
+    out, _ = program(full + ["--engine", "csr", "--chunk-steps", str(steps)])
+    check(cli_lines(out) == whole, "csr digest != blocked_fused digest")
+    program([tele], "repro_torch.obs.check")
+    from repro_torch.obs import report
+    check(report.main([tele]) == 0, "empty telemetry stream")
+
+    launches = {}
+    ck = ["--chunk-steps", str(CLI_CHUNK), "--checkpoint-dir",
+          os.path.join(work, "ck_async")]
+    K.reset_launches()
+    got, _ = in_process(fused + ck + ["--inject-fail-at-chunk", "2"],
+                        async_checkpoint=True)
+    check(set(got) == {"kill"}, "the killed in-process run printed a result")
+    got, _ = in_process(fused + ck + ["--resume"], async_checkpoint=True)
+    launches["fused_deliver_lif"] = K.LAUNCHES["fused_deliver_lif"]
+    check(got == whole, "background-checkpoint resume digest differs")
+    check(dict(K.LAUNCHES) == {"fused_deliver_lif": steps,
+                               "spike_deliver": 0},
+          f"kill and resume launches {K.LAUNCHES}, expected {steps} fused")
+    K.reset_launches()
+    got, _ = in_process(full + ["--engine", "blocked", "--chunk-steps",
+                                str(steps)])
+    launches["spike_deliver"] = K.LAUNCHES["spike_deliver"]
+    check(got == whole, "blocked digest != blocked_fused digest")
+    check(dict(K.LAUNCHES) == {"fused_deliver_lif": 0,
+                               "spike_deliver": steps},
+          f"blocked CLI launches {K.LAUNCHES}")
+
+    dist = ["--scale", CLI_SCALE, "--fixed-point", "--distributed",
+            "--emulate", "--cores", str(P_DIST), "--dist-scheme", "blocked",
+            "--engine", "blocked_fused", "--t-ms", str(CLI_DIST_T_MS),
+            "--digest"]
+    d_steps = int(round(CLI_DIST_T_MS / 0.1))
+    K.reset_launches()
+    one, secs_dist = in_process(dist)
+    check("digest" in one, "no partitioned digest")
+    ck = ["--chunk-steps", str(CLI_DIST_CHUNK), "--checkpoint-dir",
+          os.path.join(work, "ck_dist")]
+    got, _ = in_process(dist + ck + ["--inject-fail-at-chunk", "2"])
+    check(set(got) == {"kill"}, "the killed partitioned run printed a result")
+    got, _ = in_process(dist + ck + ["--resume"])
+    check(got == one, "partitioned resumed digest != unchunked digest")
+    launches["fused_deliver_lif_p12"] = K.LAUNCHES["fused_deliver_lif"]
+    check(dict(K.LAUNCHES) == {"fused_deliver_lif": 2 * P_DIST * d_steps,
+                               "spike_deliver": 0},
+          f"partitioned CLI launches {K.LAUNCHES}")
+    print(f"CLI: digest {whole['digest'][:16]} for the whole, resumed "
+          f"(program and in process, background writes), csr and blocked "
+          f"runs; P = {P_DIST} digest {one['digest'][:16]} unchunked and "
+          f"resumed; launches {json.dumps(launches)}; whole run "
+          f"{secs_whole:.3f} s, resume {secs_resume:.3f} s, P = {P_DIST} "
+          f"{secs_dist:.3f} s (set-up included); card {smi}", flush=True)
+    return launches
+
+
 def flywire_section(smi):
     """The simulate() phases at full FlyWire size, then the P = 12
     simulate_distributed() phase; returns the kernel numbers of the two
@@ -1800,10 +2212,11 @@ def flywire_section(smi):
 
     import torch
     from repro_torch.configs.flywire import CONFIG
-    from repro_torch.core.connectome import synthetic_flywire
+    from repro_torch.core.connectome import synthetic_flywire_cached
     from repro_torch.exp import build_scenario
     t0 = time.perf_counter()
-    c = synthetic_flywire(N_FULL, target_synapses=SYN_FULL, seed=0)
+    # cached on disk (build/repro_cache): the CLI phase's programs load it
+    c = synthetic_flywire_cached(N_FULL, target_synapses=SYN_FULL, seed=0)
     print(f"[phase] connectome: {time.perf_counter() - t0:.3f} s "
           f"(n={c.n}, synapses={c.nnz}, max fan-in {int(c.fan_in.max())})",
           flush=True)
@@ -1815,7 +2228,11 @@ def flywire_section(smi):
     del ref
     phase_trace(c, cfg, stim, syn)
     other_launches = phase_other(c, cfg, stim, syn)
+    supervision = phase_supervision(c, cfg, stim, syn, smi)
+    scenarios, storm_busy, storm_rows, scenario_launches = phase_scenarios(
+        c, cfg, syn, smi)
     yard, activity = phase_yardstick(c, cfg, syn, fused, smi)
+    activity += storm_rows
     launches = {"spike_deliver": other_launches["spike_deliver"],
                 "fused_deliver_lif": main_launches["fused_deliver_lif"]}
     del fused
@@ -1841,8 +2258,11 @@ def flywire_section(smi):
           f"{ms_csr:.4f} ms/step, CONFIG.sim (event) {ms_event:.4f} ms/step; "
           f"P = {P_DIST} ms/step {json.dumps(ms_dist)}; {left:.3f} GB left "
           f"allocated", flush=True)
+    extra = {"supervision": supervision, "scenarios": scenarios,
+             "background_storm_busy_ms_per_step": storm_busy,
+             "scenario_launches": scenario_launches}
     return (yard, activity, launches, sharded, sharded_launches, lanes,
-            dist_trials_out)
+            dist_trials_out, extra)
 
 
 
@@ -1861,7 +2281,8 @@ def main() -> int:
     check_err["flash_attention"] = phase_flash_check()
 
     (yard, activity, launches, sharded, sharded_launches, lanes,
-     dist_trials_out) = flywire_section(smi)
+     dist_trials_out, extra) = flywire_section(smi)
+    cli_launches = phase_cli(smi)
     lif_yard, lif_ms_step = phase_lif_path(smi)
     for name, (ms, plain_ms, bound, lib_ms, err, n) in lif_yard.items():
         yard[name] = (ms, plain_ms, bound, lib_ms, err)
@@ -1906,16 +2327,31 @@ def main() -> int:
             # the same kernel over B = 10 lanes of run_trials: one launch
             # a step for all lanes, and the B = 10 yardstick cases
             kernels[-1]["trials_b10"] = lanes[name]
+        if name in cli_launches:
+            # the CLI's in-process runs (counted from 0 before them) and
+            # the seven scenarios (the fused kernel)
+            kernels[-1]["cli_launches"] = cli_launches[name]
+            if name == "fused_deliver_lif":
+                kernels[-1]["cli_p12_launches"] = cli_launches[
+                    "fused_deliver_lif_p12"]
+                kernels[-1]["scenario_launches"] = extra["scenario_launches"]
     check(all(k["launches"] > 0 for k in kernels)
           and all(k["sharded_p12"]["launches"] > 0
                   and k["sharded_p12"]["trials_b3_launches"] > 0
                   and k["trials_b10"]["launches"] > 0
                   for k in kernels if "sharded_p12" in k),
           "a kernel never launched")
+    check(all(k["cli_launches"] > 0 for k in kernels if "cli_launches" in k)
+          and len([k for k in kernels if "cli_launches" in k]) == 2,
+          "a delivery kernel never launched on the CLI path")
     print(f"total {time.perf_counter() - t_all:.3f} s; LIF entry points "
           f"{json.dumps({k: round(v, 5) for k, v in lif_ms_step.items()})} "
           f"ms/step", flush=True)
     import torch
+    print(json.dumps({"supervision": extra["supervision"],
+                      "scenarios": extra["scenarios"],
+                      "background_storm_busy_ms_per_step":
+                      extra["background_storm_busy_ms_per_step"]}))
     print(json.dumps({"activity": activity}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

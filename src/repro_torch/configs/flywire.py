@@ -1,8 +1,8 @@
 """flywire — the paper's own workload: the FlyWire connectome LIF network
 (139,255 neurons / ~15M condensed synapses) with the sugar-neuron
 experiment.  Counterpart of ``repro/configs/flywire.py``: ``CONFIG.sim``
-(the ``event`` engine, Q19.12, 9-bit weights) runs in the port as it is.
-The 1 ms variant ``CONFIG_1MS`` is not carried over.
+(the ``event`` engine, Q19.12, 9-bit weights) runs in the port as it is;
+``CONFIG_1MS`` is the same at dt = 1 ms (the CLI's ``--dt 1.0``).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import numpy as np
 
 from repro_torch.core.connectome import FLYWIRE_N_NEURONS
 from repro_torch.core.engine import SimConfig
-from repro_torch.core.neuron import FLYWIRE_LIF
+from repro_torch.core.neuron import FLYWIRE_LIF, FLYWIRE_LIF_1MS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,4 +37,7 @@ class FlyWireConfig:
 
 
 CONFIG = FlyWireConfig()
+CONFIG_1MS = FlyWireConfig(
+    sim=SimConfig(params=FLYWIRE_LIF_1MS, engine="event", quantize_bits=9,
+                  fixed_point=True, poisson_to_v=False))
 SMOKE = FlyWireConfig(n_neurons=2000, target_synapses=60_000, t_sim_ms=50.0)

@@ -249,8 +249,10 @@ def cache_path(n: int, seed: int, **kw) -> str:
 
 
 def synthetic_flywire_cached(n: int, seed: int = 0, **kw) -> Connectome:
-    """Disk-cached synthetic connectome (full-scale generation takes ~min).
-    The cache key covers every generator kwarg, not just (n, seed)."""
+    """Disk-cached synthetic connectome.  The cache key covers every
+    generator kwarg, not just (n, seed).  Unlike the reference's, the file
+    is an uncompressed ``.npz``: at full size, compressing it takes longer
+    than generating the network."""
     path = cache_path(n, seed, **kw)
     if os.path.exists(path):
         z = np.load(path)
@@ -259,7 +261,7 @@ def synthetic_flywire_cached(n: int, seed: int = 0, **kw) -> Connectome:
                               "out_indptr", "out_indices", "out_weights")})
     c = synthetic_flywire(n=n, seed=seed, **kw)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez_compressed(
+    np.savez(
         path, n=c.n, in_indptr=c.in_indptr, in_indices=c.in_indices,
         in_weights=c.in_weights, out_indptr=c.out_indptr,
         out_indices=c.out_indices, out_weights=c.out_weights)

@@ -13,9 +13,14 @@ of their contributions in partition order, then every partition's rest
 of the step (:func:`_run_emulated`).  The PRNG streams are per partition
 and independent, so the order of the partitions changes no result.  The
 real multi-device path (``emulate=False``, ``torch.distributed`` over
-several GPUs) is not ported: it raises ``NotImplementedError``, as do
-the reference's supervision features (``chunk_steps``, checkpoints,
-``sim.health``).
+several GPUs) is not ported: it raises ``NotImplementedError``.
+
+Supervision (``chunk_steps``, checkpoints, ``sim.health``) and telemetry
+go through :func:`repro_torch.core.health.run_chunked` as on the
+monolithic path, with the list of per-partition carries as the carry
+and the records stacked over the partitions; as in the reference, the
+trial-batched path (:func:`repro_torch.exp.run_dist_trials`) rejects
+supervision.
 
 Records and counts come back in original neuron ids through ``inv_perm``;
 pad neurons never spike (the step's pad mask) and never appear in any
@@ -33,12 +38,14 @@ keeps it.
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch import random as prng
 from repro_torch.tree import map_tensors
 
@@ -46,6 +53,8 @@ from .capacity import DISTRIBUTED_CAPACITY, CapacityConfig, merge_legacy_capacit
 from .dcsr import DCSR
 from .engine import SimConfig, resolve_device, single_lane
 from .exchange import Topology, all_gather, get_scheme
+from .health import (SimCheckpointer, carry_counters, health_stats_init,
+                     run_chunked)
 from .neuron import LIFState, init_state
 from .step import SimCarry, step_exchange, step_finish
 
@@ -144,23 +153,27 @@ def _init_dist_carry(d: DCSR, cfg: DistConfig, stim, scheme, keys,
             counts=torch.zeros((B, U), dtype=torch.int32, device=device),
             dropped=torch.zeros(B, dtype=torch.int32, device=device),
             stim=stim.init_state(U),
-            stats={k: torch.zeros(B, dtype=torch.int32, device=device)
-                   for k in scheme.init_stats()}))
+            stats={**{k: torch.zeros(B, dtype=torch.int32, device=device)
+                      for k in scheme.init_stats()},
+                   **health_stats_init(sc, B, device)}))
     return carries
 
 
 def _run_emulated(scheme, states, carries, stims, pads, vrows,
                   cfg: DistConfig, probes, t_steps: int, topo: Topology,
-                  partitionable: bool):
-    """The partitions' steps on one device: per step, every partition's
-    exchange half, the emulated all_gather, every partition's finish.
-    Returns the final carries and each partition's records, ``[B, T,
-    ...]`` per name."""
+                  partitionable: bool, t0: int = 0):
+    """The partitions' steps on one device, from the absolute step
+    ``t0``: per step, every partition's exchange half, the emulated
+    all_gather, every partition's finish.  Returns the final carries and
+    each partition's records, ``[B, T, ...]`` per name.  The given list
+    and its carries are not modified (each ring is copied once, then
+    written in place)."""
     P_ = len(carries)
+    carries = [c._replace(ring=c.ring.clone()) for c in carries]
     topos = [topo._replace(index=p) for p in range(P_)]
     common = dict(scheme=scheme, cap=cfg.capacity, partitionable=partitionable)
     records: list[dict[str, list]] = [{} for _ in range(P_)]
-    for t in range(t_steps):
+    for t in range(t0, t0 + t_steps):
         exs = [step_exchange(carries[p], state=states[p], stim=stims[p],
                              topo=topos[p], **common) for p in range(P_)]
         gathered = all_gather([ex.sent for ex in exs])
@@ -230,22 +243,39 @@ def _assemble(d: DCSR, carries: list[SimCarry], records: list[dict],
     return counts, dropped, lif, recs, stats
 
 
+# Compile-cache accounting (repro_torch.obs), keyed as the reference's
+# emulated program: the config, probes and step count by value, the
+# scheme by its type.
+_run_emulated_call = obs.InstrumentedCall(
+    _run_emulated, "distributed.run_emulated", static_argnums=(6, 7, 8))
+
+
 def run_partitioned(d: DCSR, cfg: DistConfig, t_steps: int, keys,
                     sugar_neurons, stimulus, probes, device,
-                    partitionable: bool):
+                    partitionable: bool, trials: bool = True,
+                    chunk_steps: Optional[int] = None,
+                    checkpoint_dir: Optional[str] = None,
+                    resume: bool = False, async_checkpoint: bool = False):
     """Build the scheme's state, shard the stimulus and run the partitions
     from ``keys`` [P, B, 2] (emulated on ``device``); returns the final
     carries, each partition's ``[B, T, ...]`` records and the probe owners.
     Shared by :func:`simulate_distributed` and
-    :func:`repro_torch.exp.run_dist_trials`."""
-    if cfg.sim.health is not None:
-        raise NotImplementedError("SimConfig.health is not ported yet")
+    :func:`repro_torch.exp.run_dist_trials` (``trials``).  Both go through
+    the chunk loop (one chunk when ``chunk_steps`` is None); the trial
+    path rejects supervision, as the reference's does."""
     if cfg.scheme == "local":
         raise ValueError("the 'local' scheme is the monolithic simulate(); "
                          "pick a partitioned exchange scheme")
+    if trials and (chunk_steps is not None or checkpoint_dir is not None
+                   or cfg.sim.health is not None):
+        raise ValueError(
+            "chunked supervision (chunk_steps / checkpoint_dir / "
+            "health) is not supported on the trial-batched path; "
+            "supervise seeds as separate simulate_distributed runs")
     scheme = get_scheme(cfg.scheme)
     P_, U = d.n_parts, d.part_size
-    state = scheme.build(d, cfg.sim, cfg.capacity, device)
+    with obs.span("build", what="scheme_state", scheme=cfg.scheme):
+        state = scheme.build(d, cfg.sim, cfg.capacity, device)
     stim = _resolve_dist_stimulus(d, cfg.sim, sugar_neurons,
                                   stimulus).to(device)
     probes, rows, owner = _resolve_dist_probes(d, cfg.sim, probes)
@@ -255,11 +285,30 @@ def run_partitioned(d: DCSR, cfg: DistConfig, t_steps: int, keys,
 
     def part(x, p):
         return map_tensors(lambda a: a[p], x)
-    carries, records = _run_emulated(
-        scheme, [part(state, p) for p in range(P_)], carries,
-        [part(stim, p) for p in range(P_)], pad,
-        rows if probes.voltage else [None] * P_, cfg, probes, t_steps,
-        Topology(P_, U, axis=AXIS), partitionable)
+    states = [part(state, p) for p in range(P_)]
+    stims = [part(stim, p) for p in range(P_)]
+    vrows = rows if probes.voltage else [None] * P_
+    topo = Topology(P_, U, axis=AXIS)
+
+    def run(cs, k, t0):
+        return _run_emulated_call(scheme, states, cs, stims, pad, vrows,
+                                  cfg, probes, k, topo, partitionable, t0)
+
+    ckpt = (SimCheckpointer(checkpoint_dir, async_save=async_checkpoint)
+            if checkpoint_dir is not None else None)
+
+    def run_chunk(cs, s, k):
+        # records stacked over the partitions, [P, B, K, ...]
+        cs, recs = run(cs, k, s)
+        return cs, {name: torch.stack([r[name] for r in recs])
+                    for name in (recs[0] if recs else ())}
+
+    carries, stacked = run_chunked(
+        run_chunk, carries, t_steps, chunk_steps, time_axis=2,
+        health=cfg.sim.health, n=d.n_orig, dt_ms=cfg.sim.params.dt,
+        checkpointer=ckpt, resume=resume)
+    records = [{name: v[p] for name, v in stacked.items()}
+               for p in range(P_)]
     return carries, records, owner
 
 
@@ -292,24 +341,42 @@ def simulate_distributed(
     ``device`` defaults to CUDA and raises without it; ``partitionable``
     is the threefry mode of ``seed``'s stream.  Each partition's key is
     ``split(PRNGKey(seed), P)[p]``, as in the reference.
+
+    ``chunk_steps`` / ``checkpoint_dir`` / ``resume`` /
+    ``async_checkpoint`` mirror :func:`repro_torch.core.simulate`'s
+    chunked supervision on the partitioned path, and with a telemetry
+    session active the run emits the same event stream.
     """
     if not emulate or mesh is not None:
         make_core_mesh(d.n_parts)
-    if (chunk_steps is not None or checkpoint_dir is not None or resume
-            or async_checkpoint):
-        raise NotImplementedError(
-            "chunk_steps, checkpoint_dir, resume and async_checkpoint are "
-            "not ported to PyTorch yet")
-    device = resolve_device(device)
-    keys = prng.split(prng.PRNGKey(seed, device=device), d.n_parts,
-                      partitionable=partitionable)
-    carries, records, owner = run_partitioned(
-        d, cfg, t_steps, keys[:, None], sugar_neurons, stimulus, probes,
-        device, partitionable)
-    # the one lane, its axis taken off before the mapping to original ids
-    carries = [single_lane(c) for c in carries]
-    records = [{k: v.squeeze(0) for k, v in r.items()} for r in records]
-    counts, dropped, lif, recs, stats = _assemble(d, carries, records, owner)
+    tele = obs.active()
+    with obs.span("simulate_distributed", scheme=cfg.scheme):
+        device = resolve_device(device)
+        if tele is not None:
+            tele.emit("run_start", kind="simulate_distributed",
+                      scheme=cfg.scheme, n=d.n_orig, t_steps=t_steps,
+                      chunk_steps=chunk_steps,
+                      fixed_point=cfg.sim.fixed_point)
+        t_run = time.monotonic()
+        keys = prng.split(prng.PRNGKey(seed, device=device), d.n_parts,
+                          partitionable=partitionable)
+        carries, records, owner = run_partitioned(
+            d, cfg, t_steps, keys[:, None], sugar_neurons, stimulus, probes,
+            device, partitionable, trials=False, chunk_steps=chunk_steps,
+            checkpoint_dir=checkpoint_dir, resume=resume,
+            async_checkpoint=async_checkpoint)
+        # the one lane, its axis taken off before the mapping to original
+        # ids
+        carries = [single_lane(c) for c in carries]
+        records = [{k: v.squeeze(0) for k, v in r.items()} for r in records]
+        counts, dropped, lif, recs, stats = _assemble(d, carries, records,
+                                                      owner)
+        if tele is not None:
+            tele.emit("run_end", steps=t_steps,
+                      wall_s=round(time.monotonic() - t_run, 6),
+                      counters=carry_counters(carries),
+                      metrics=tele.metrics.counters())
+            stats["compile_cache"] = tele.metrics.compile_snapshot()
     return DistResult(counts=counts, dropped=int(dropped), state=lif,
                       raster=recs.get("raster"), records=recs, stats=stats)
 

@@ -18,26 +18,36 @@ of the same loop.
 
 It runs on the CUDA device unless the caller names another device; with
 no device named and no CUDA device present it raises, so a run never
-lands on the CPU by accident.  The reference's supervision features
-(``chunk_steps``, checkpoints, ``cfg.health``) and its telemetry are not
-ported yet: asking for them raises ``NotImplementedError``, and
-``SimResult.stats`` is ``{}``.
+lands on the CPU by accident.
+
+Supervision (:mod:`repro_torch.core.health`): every run goes through
+:func:`~repro_torch.core.health.run_chunked`, as one chunk when
+``chunk_steps`` is None; ``chunk_steps``, ``checkpoint_dir`` / ``resume``
+/ ``async_checkpoint`` and ``cfg.health`` split and supervise the same
+steps, bitwise equal to the run in one chunk.  With a telemetry session
+active (:mod:`repro_torch.obs`) the run emits ``run_start`` / ``chunk``
+/ ``run_end`` events and spans, and ``SimResult.stats["compile_cache"]``
+counts the step loop's signatures.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch import random as prng
 
 from .capacity import MONOLITHIC_CAPACITY, CapacityConfig, merge_legacy_capacity
 from .connectome import Connectome
 from .engines import available_engines, get_engine
+from .health import (HealthConfig, SimCheckpointer, carry_counters,
+                     health_stats_init, run_chunked)
 from .neuron import LIFParams, LIFState, f32, init_state
 from .step import SimCarry, scan_steps
 
@@ -61,7 +71,7 @@ class SimConfig:
     ell_width_cap: int = 4096        # SSD fan-in cap (ell engine, not ported)
     collect_raster: bool = False     # deprecated: use ProbeSpec(raster=True)
     capacity: Optional[CapacityConfig] = None   # event-path static budgets
-    health: Optional[Any] = None     # in-scan sentinels: not ported yet
+    health: Optional[HealthConfig] = None   # in-step sentinels + thresholds
 
     def __post_init__(self):
         cap = merge_legacy_capacity(
@@ -92,7 +102,8 @@ def resolve_device(device=None) -> torch.device:
 def build_synapses(c: Connectome, cfg: SimConfig, device=None) -> Any:
     """Build the engine's synaptic state on ``device``; pass it back to
     :func:`simulate` via ``syn=`` to reuse it across runs."""
-    return get_engine(cfg.engine).build(c, cfg, resolve_device(device))
+    with obs.span("build", what="synapses", engine=cfg.engine):
+        return get_engine(cfg.engine).build(c, cfg, resolve_device(device))
 
 
 class SimResult(NamedTuple):
@@ -101,7 +112,7 @@ class SimResult(NamedTuple):
     dropped: torch.Tensor
     raster: torch.Tensor | None
     records: dict          # ProbeSpec-selected [T, ...] tensors
-    stats: dict = {}       # scheme + health counters (none ported yet)
+    stats: dict = {}       # health counters (repro_torch.core.health)
 
 
 def init_carry(n: int, cfg: SimConfig, stimulus, seed, device) -> SimCarry:
@@ -127,7 +138,7 @@ def init_carry(n: int, cfg: SimConfig, stimulus, seed, device) -> SimCarry:
         counts=torch.zeros((B, n), dtype=torch.int32, device=device),
         dropped=torch.zeros(B, dtype=torch.int32, device=device),
         stim=stimulus.init_state(n),
-        stats={},
+        stats=health_stats_init(cfg, B, device),
     )
 
 
@@ -168,6 +179,14 @@ def run_steps(syn, carry: SimCarry, stim, cfg: SimConfig, probes,
         carry = single_lane(carry)
         records = {k: v.squeeze(0) for k, v in records.items()}
     return carry, records
+
+
+# Compile-cache accounting (repro_torch.obs): with a telemetry session
+# active, calls count per signature (the config, probes, step count and
+# neuron count by value, the tensors by shape), as the reference's
+# InstrumentedJit keys its jitted scan; otherwise the plain call.
+_run_steps = obs.InstrumentedCall(run_steps, "engine.run_scan",
+                                  static_argnums=(3, 4, 5, 6))
 
 
 def _resolve_stimulus(cfg: SimConfig, n: int, sugar_neurons, stimulus):
@@ -222,26 +241,50 @@ def simulate(
     ``sugar_neurons``); ``probes`` a :class:`repro_torch.exp.ProbeSpec`.
     ``device`` defaults to CUDA; ``partitionable`` is the threefry mode
     that ``seed``'s stream follows (JAX's ``jax_threefry_partitionable``).
+
+    ``chunk_steps=K`` runs the same steps as ceil(T/K) chunks with the
+    carry handed on between them, bitwise equal to one run; at each
+    boundary the host checks ``cfg.health`` and (with
+    ``checkpoint_dir``) checkpoints the carry, so a killed run restarted
+    with ``resume=True`` reproduces the uninterrupted one bit for bit
+    (see :mod:`repro_torch.core.health`).
     """
-    if (chunk_steps is not None or checkpoint_dir is not None or resume
-            or async_checkpoint):
-        raise NotImplementedError(
-            "chunk_steps, checkpoint_dir, resume and async_checkpoint are "
-            "not ported to PyTorch yet")
-    if cfg.health is not None:
-        raise NotImplementedError("SimConfig.health is not ported yet")
-    device = resolve_device(device)
-    n = c.n
-    if syn is None:
-        syn = build_synapses(c, cfg, device)
-    stimulus = _resolve_stimulus(cfg, n, sugar_neurons, stimulus).to(device)
-    probes = _resolve_probes(cfg, probes)
-    carry = init_carry(n, cfg, stimulus, seed, device)
-    carry, records = run_steps(syn, carry, stimulus, cfg, probes, t_steps, n,
-                               partitionable=partitionable)
+    tele = obs.active()
+    with obs.span("simulate", engine=cfg.engine):
+        device = resolve_device(device)
+        n = c.n
+        if syn is None:
+            syn = build_synapses(c, cfg, device)
+        stimulus = _resolve_stimulus(cfg, n, sugar_neurons,
+                                     stimulus).to(device)
+        probes = _resolve_probes(cfg, probes)
+        carry = init_carry(n, cfg, stimulus, seed, device)
+        if tele is not None:
+            tele.emit("run_start", kind="simulate", engine=cfg.engine,
+                      n=n, t_steps=t_steps, chunk_steps=chunk_steps,
+                      fixed_point=cfg.fixed_point)
+        t_run = time.monotonic()
+        ckpt = (SimCheckpointer(checkpoint_dir, async_save=async_checkpoint)
+                if checkpoint_dir is not None else None)
+
+        def run_chunk(cy, s, k):
+            return _run_steps(syn, cy, stimulus, cfg, probes, k, n, s,
+                              partitionable=partitionable)
+
+        carry, records = run_chunked(
+            run_chunk, carry, t_steps, chunk_steps, time_axis=0,
+            health=cfg.health, n=n, dt_ms=cfg.params.dt,
+            checkpointer=ckpt, resume=resume)
+        stats = dict(carry.stats)
+        if tele is not None:
+            tele.emit("run_end", steps=t_steps,
+                      wall_s=round(time.monotonic() - t_run, 6),
+                      counters=carry_counters(carry),
+                      metrics=tele.metrics.counters())
+            stats["compile_cache"] = tele.metrics.compile_snapshot()
     return SimResult(counts=carry.counts, state=carry.lif,
                      dropped=carry.dropped, raster=records.get("raster"),
-                     records=records, stats={})
+                     records=records, stats=stats)
 
 
 def spike_rates_hz(counts: torch.Tensor, t_steps: int, dt_ms: float

@@ -16,6 +16,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 from ..dcsr import DCSR
 from .base import memoized_build
 
@@ -65,10 +67,10 @@ def _host_dist_arrays(d: DCSR) -> dict:
 def build_dist_arrays(d: DCSR, device) -> DistArrays:
     """The bitmap/event stores of ``d`` on ``device``, memoized on both."""
     def build():
-        host = _host_dist_arrays(d)
-        return DistArrays(**{k: torch.from_numpy(np.ascontiguousarray(v)
-                                                 ).to(device)
-                             for k, v in host.items()})
+        with obs.span("build", what="dist_arrays"):
+            host = _host_dist_arrays(d)
+            return DistArrays(**{k: torch.from_numpy(
+                np.ascontiguousarray(v)).to(device) for k, v in host.items()})
     return memoized_build(d, f"dist_arrays:{torch.device(device)}", build)
 
 

@@ -35,6 +35,7 @@ import torch
 from repro_torch import random as prng
 
 from .exchange.base import ExchangeScheme, Topology, all_gather
+from .health import health_step_stats
 from .neuron import LIFState
 
 
@@ -55,7 +56,7 @@ class SimCarry(NamedTuple):
     counts: torch.Tensor   # [B, U] int32 spike counts
     dropped: torch.Tensor  # [B] int32 total dropped synapse events
     stim: Any              # stimulus state (() for stateless stimuli)
-    stats: dict            # scheme stats counters, [B] each
+    stats: dict            # scheme and health counters, [B] each
 
 
 class Exchanged(NamedTuple):
@@ -103,6 +104,9 @@ def step_finish(carry: SimCarry, ex: Exchanged, gathered: torch.Tensor,
         spikes = spikes & pad_mask
 
     carry.ring[carry.ptr] = spikes
+    # the health sentinels (repro_torch.core.health) accumulate next to
+    # the scheme counters; the carry's stats keys are fixed at init time
+    stats = {**stats, **health_step_stats(lif, sim)}
     new = SimCarry(
         lif=lif, ring=carry.ring, ptr=(carry.ptr + 1) % p.delay_steps,
         key=ex.keys[..., 0, :], counts=carry.counts + spikes.to(torch.int32),
@@ -128,9 +132,11 @@ def sim_step(carry: SimCarry, t: int, *, scheme: ExchangeScheme, state, stim,
 def scan_steps(scheme: ExchangeScheme, state, carry: SimCarry, stim, sim,
                cap, topo: Topology, probes, t_steps: int, *, t0: int = 0,
                partitionable: bool = True) -> tuple[SimCarry, dict]:
-    """Run ``t_steps`` of :func:`sim_step` from step index ``t0``; returns
-    the final carry and the records stacked to ``[B, T, ...]``.  The given
-    carry is not modified."""
+    """Run ``t_steps`` of :func:`sim_step` from the absolute step index
+    ``t0`` (a chunk of a supervised run starts at its own step, so the
+    clocked stimuli never replay); returns the final carry and the
+    records stacked to ``[B, T, ...]``.  The given carry is not
+    modified."""
     voltage_rows = None
     if probes.voltage:
         probes.check(topo.part_size)

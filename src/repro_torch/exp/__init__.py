@@ -1,13 +1,13 @@
 """Experiment subsystem: stimulus protocols, per-step probes, the
-named-scenario registry and trial batches (counterpart of ``repro.exp``;
-the clocked stimuli are not ported yet)."""
+named-scenario registry and trial batches (counterpart of
+``repro.exp``)."""
 
 from .probes import NO_PROBES, ProbeSpec
 from .scenarios import (Scenario, available_scenarios, build_scenario,
                         get_scenario, register_scenario)
-from .stimulus import (SILENT, Background, Compose, PoissonDrive, SkipKey,
-                       StimDrive, apply_drive, legacy_stimulus, n_split,
-                       shard_stimulus)
+from .stimulus import (SILENT, Background, Compose, PoissonDrive, PulseTrain,
+                       RampDrive, SkipKey, StepCurrent, StimDrive, apply_drive,
+                       legacy_stimulus, n_split, per_neuron, shard_stimulus)
 from .trials import (DistTrialResult, TrialResult, run_dist_trials,
                      run_trials, trial_carry)
 
@@ -15,9 +15,9 @@ __all__ = [
     "NO_PROBES", "ProbeSpec",
     "Scenario", "available_scenarios", "build_scenario", "get_scenario",
     "register_scenario",
-    "SILENT", "Background", "Compose", "PoissonDrive", "SkipKey",
-    "StimDrive", "apply_drive", "legacy_stimulus", "n_split",
-    "shard_stimulus",
+    "SILENT", "Background", "Compose", "PoissonDrive", "PulseTrain",
+    "RampDrive", "SkipKey", "StepCurrent", "StimDrive", "apply_drive",
+    "legacy_stimulus", "n_split", "per_neuron", "shard_stimulus",
     "DistTrialResult", "TrialResult", "run_dist_trials", "run_trials",
     "trial_carry",
 ]

@@ -1,11 +1,25 @@
 """Named-scenario registry: reusable stimulus-response experiments.
 
 Counterpart of ``repro/exp/scenarios.py``.  A scenario is a named builder
-``build(c, cfg, **params) -> Stimulus`` with overridable defaults.
-Ported: ``sugar_feeding`` (the paper's validation workload),
-``activity_sweep`` and ``silent_baseline``.  The reference's
-``background_storm``, ``step_response``, ``pulse_probe`` and ``opto_ramp``
-are not ported yet; asking for them raises ``NotImplementedError``.
+``build(c, cfg, **params) -> Stimulus`` with overridable defaults; the
+CLI (``repro_torch.launch.simulate --scenario``) and ``chip_smoke.py``
+draw from this catalog, so a scenario runs monolithic, as a trial batch
+or partitioned (through :func:`repro_torch.exp.shard_stimulus`)
+unchanged.
+
+================== ======================================================
+sugar_feeding      the paper's validation workload: Poisson drive onto a
+                   random sugar-sensing population (+ optional background)
+activity_sweep     uniform background spiking at a parametric rate — the
+                   scaling-study substrate
+background_storm   sugar drive under heavy background (stress / drop
+                   accounting regime)
+silent_baseline    no external drive: a correctly wired network must stay
+                   silent (regression canary)
+step_response      constant current step onto a random subset in a window
+pulse_probe        periodic pulse train onto a random subset
+opto_ramp          optogenetic-style windowed linear ramp drive
+================== ======================================================
 """
 
 from __future__ import annotations
@@ -16,11 +30,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .stimulus import SILENT, Background, Compose, PoissonDrive
-
-#: Scenarios of ``repro.exp.scenarios`` that this package does not have yet.
-NOT_PORTED = ("background_storm", "opto_ramp", "pulse_probe",
-              "step_response")
+from .stimulus import (SILENT, Background, Compose, PoissonDrive, PulseTrain,
+                       RampDrive, StepCurrent, per_neuron)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,12 +57,12 @@ def register_scenario(name: str, description: str = "", **defaults):
 
 
 def get_scenario(name: str) -> Scenario:
-    if name in _SCENARIOS:
+    try:
         return _SCENARIOS[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"scenario {name!r} is not ported yet")
-    raise ValueError(
-        f"unknown scenario {name!r}; available: {sorted(_SCENARIOS)}")
+    except KeyError:
+        raise ValueError(
+            f"unknown scenario {name!r}; available: {sorted(_SCENARIOS)}"
+        ) from None
 
 
 def available_scenarios() -> list[str]:
@@ -101,6 +112,15 @@ def _activity_sweep(c, cfg, *, background_hz):
 
 
 @register_scenario(
+    "background_storm",
+    "sugar drive under heavy background activity (stress regime)",
+    n_sugar=20, background_hz=200.0, seed=0)
+def _background_storm(c, cfg, *, n_sugar, background_hz, seed):
+    sugar = build_scenario("sugar_feeding", c, cfg, n_sugar=n_sugar, seed=seed)
+    return Compose(sugar.parts + (Background(rate_hz=background_hz),))
+
+
+@register_scenario(
     "silent_baseline",
     "no external drive: the network must stay silent",
 )
@@ -108,5 +128,39 @@ def _silent_baseline(c, cfg):
     return SILENT
 
 
-__all__ = ["NOT_PORTED", "Scenario", "available_scenarios", "build_scenario",
+@register_scenario(
+    "step_response",
+    "constant current step onto a random subset during a window",
+    n_targets=100, amp=80.0, t_on=50, t_off=250, seed=0)
+def _step_response(c, cfg, *, n_targets, amp, t_on, t_off, seed):
+    w = per_neuron(_pick(c, n_targets, seed), amp, c.n)
+    return Compose((StepCurrent(weights=w, t_on=int(t_on), t_off=int(t_off)),))
+
+
+@register_scenario(
+    "pulse_probe",
+    "periodic pulse train onto a random subset",
+    n_targets=100, amp=120.0, period_ms=5.0, width_ms=0.5, t_on=0, seed=0)
+def _pulse_probe(c, cfg, *, n_targets, amp, period_ms, width_ms, t_on, seed):
+    dt = cfg.params.dt
+    w = per_neuron(_pick(c, n_targets, seed), amp, c.n)
+    return Compose((PulseTrain(
+        weights=w, period=max(1, int(round(period_ms / dt))),
+        width=max(1, int(round(width_ms / dt))), t_on=int(t_on)),))
+
+
+@register_scenario(
+    "opto_ramp",
+    "optogenetic-style windowed linear ramp drive",
+    n_targets=200, amp=60.0, t_on_ms=5.0, ramp_ms=20.0, t_off_ms=40.0, seed=0)
+def _opto_ramp(c, cfg, *, n_targets, amp, t_on_ms, ramp_ms, t_off_ms, seed):
+    dt = cfg.params.dt
+    w = per_neuron(_pick(c, n_targets, seed), amp, c.n)
+    return Compose((RampDrive(
+        weights=w, t_on=int(round(t_on_ms / dt)),
+        t_ramp=max(1, int(round(ramp_ms / dt))),
+        t_off=int(round(t_off_ms / dt))),))
+
+
+__all__ = ["Scenario", "available_scenarios", "build_scenario",
            "get_scenario", "register_scenario"]

@@ -24,8 +24,14 @@ batch of B lanes, as the reference's stimulus sees one lane under
 Partitioned use: :func:`shard_stimulus` turns a stimulus into its dense
 per-neuron ("masked") form and remaps every per-neuron tensor through a
 DCSR partitioning into partition-stacked ``[P, U]`` tensors (stateless
-stimuli only).  The clocked stimuli (``StepCurrent``, ``PulseTrain``,
-``RampDrive``) are not ported yet.
+stimuli only).
+
+The clocked stimuli (:class:`StepCurrent`, :class:`PulseTrain`,
+:class:`RampDrive`) read the absolute step index ``t`` (a Python int;
+a chunked run passes the step it starts at, so a chunk never replays a
+pulse) and draw no keys.  Their gate is float32 arithmetic on the host,
+as the reference's int32/float32 scalar ops in the scan are, and their
+drive is one ``[n]`` row that the lanes share by broadcasting.
 """
 
 from __future__ import annotations
@@ -77,6 +83,21 @@ def apply_drive(lif, g_units: torch.Tensor, drive: StimDrive, p: LIFParams,
 
 def _to(x, device):
     return None if x is None else x.to(device)
+
+
+def per_neuron(sel, amp, n: int) -> torch.Tensor:
+    """Dense [n] float32 drive: ids or bool mask ``sel`` set to ``amp``."""
+    w = np.zeros(n, np.float32)
+    w[np.asarray(sel)] = amp
+    return torch.from_numpy(w)
+
+
+def _by_target(target: str, arr: torch.Tensor) -> StimDrive:
+    if target == "v":
+        return StimDrive(v_mv=arr)
+    if target == "g":
+        return StimDrive(g_units=arr)
+    raise ValueError(f"unknown drive target {target!r} (want 'v' or 'g')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +208,108 @@ class SkipKey:
 
 
 @dataclasses.dataclass(frozen=True)
+class StepCurrent:
+    """Constant drive ``weights`` during the window [t_on, t_off)."""
+
+    weights: Any                                   # [n] float32 amplitude
+    t_on: int = 0                                  # steps
+    t_off: int | None = None
+    target: str = "g"
+
+    n_keys = 0
+
+    def init_state(self, n: int):
+        return ()
+
+    def to(self, device):
+        return dataclasses.replace(self, weights=self.weights.to(device))
+
+    def step(self, state, keys, t, n, p, *, partitionable=True):
+        on = t >= self.t_on
+        if self.t_off is not None:
+            on = on and t < self.t_off
+        # a multiply by the 0/1 gate, not a select: NaN weights stay NaN
+        # outside the window, as the reference's are
+        return state, _by_target(self.target, self.weights * float(on))
+
+    def to_masked(self, n: int):
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class PulseTrain:
+    """Periodic pulses: ``width``-step pulses every ``period`` steps from
+    ``t_on``, optionally limited to ``n_pulses``."""
+
+    weights: Any
+    period: int = 100                              # steps
+    width: int = 5                                 # steps
+    t_on: int = 0
+    n_pulses: int | None = None
+    target: str = "g"
+
+    n_keys = 0
+
+    def init_state(self, n: int):
+        return ()
+
+    def to(self, device):
+        return dataclasses.replace(self, weights=self.weights.to(device))
+
+    def step(self, state, keys, t, n, p, *, partitionable=True):
+        ph = t - self.t_on
+        on = ph >= 0
+        if self.n_pulses is not None:
+            on = on and ph < self.n_pulses * self.period
+        on = on and ph % self.period < self.width
+        return state, _by_target(self.target, self.weights * float(on))
+
+    def to_masked(self, n: int):
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class RampDrive:
+    """Optogenetic-style windowed ramp: amplitude rises linearly from 0 to
+    ``weights`` over ``t_ramp`` steps starting at ``t_on``, holds, and cuts
+    off at ``t_off`` (None = never)."""
+
+    weights: Any
+    t_on: int = 0
+    t_ramp: int = 100                              # steps to reach peak
+    t_off: int | None = None
+    target: str = "g"
+
+    n_keys = 0
+
+    def init_state(self, n: int):
+        return ()
+
+    def to(self, device):
+        return dataclasses.replace(self, weights=self.weights.to(device))
+
+    def gate(self, t: int) -> np.float32:
+        """The ramp's float32 gate at step ``t``.  XLA compiles the
+        reference's ``ph / max(t_ramp, 1)`` into a multiply by the float32
+        reciprocal of the constant, and so does this."""
+        one = np.float32(1.0)
+        ph = t - self.t_on
+        frac = np.float32(ph) * (one / np.float32(max(self.t_ramp, 1)))
+        gate = min(max(frac, np.float32(0.0)), one) if ph >= 0 \
+            else np.float32(0.0)
+        if self.t_off is not None and not t < self.t_off:
+            gate = np.float32(0.0)
+        return np.float32(gate)
+
+    def step(self, state, keys, t, n, p, *, partitionable=True):
+        return state, _by_target(self.target,
+                                 self.weights * float(self.gate(t)))
+
+    def to_masked(self, n: int):
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
 class Compose:
     """Combine stimuli: v/g drives add, forced spikes OR.  PRNG subkeys are
     handed to parts in declaration order (each consumes ``part.n_keys``)."""
@@ -280,6 +403,6 @@ def shard_stimulus(stim, d):
     return map_tensors(remap, dense)
 
 
-__all__ = ["Background", "Compose", "PoissonDrive", "SILENT", "SkipKey",
-           "StimDrive", "apply_drive", "legacy_stimulus", "n_split",
-           "shard_stimulus"]
+__all__ = ["Background", "Compose", "PoissonDrive", "PulseTrain", "RampDrive",
+           "SILENT", "SkipKey", "StepCurrent", "StimDrive", "apply_drive",
+           "legacy_stimulus", "n_split", "per_neuron", "shard_stimulus"]

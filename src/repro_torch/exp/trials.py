@@ -16,9 +16,10 @@ feeds :func:`repro_torch.core.validate.parity` directly.
 
 The synaptic state and the stimulus are shared by the lanes; each lane
 has its own PRNG stream.  Both runners read nothing back to the host
-while they run.  Their supervision (``chunk_steps``) is not ported, nor
-is the multi-device path (``emulate=False``, ``mesh``): asking for either
-raises ``NotImplementedError``.
+while they run, unless :func:`run_trials` is supervised
+(``chunk_steps``, through :func:`repro_torch.core.health.run_chunked`).
+The multi-device path (``emulate=False``, ``mesh``) is not ported:
+asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,9 +31,11 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.core.connectome import Connectome
+from repro_torch import obs
 from repro_torch.core.engine import (SimConfig, _resolve_probes,
                                      _resolve_stimulus, build_synapses,
                                      init_carry, resolve_device, run_steps)
+from repro_torch.core.health import run_chunked
 from repro_torch.core.neuron import LIFState
 
 
@@ -53,6 +56,12 @@ def trial_carry(n: int, cfg: SimConfig, stimulus, seeds, device=None):
     ``seeds`` normalized to a tuple."""
     seeds = _seed_tuple(seeds)
     return init_carry(n, cfg, stimulus, seeds, resolve_device(device)), seeds
+
+
+# Compile-cache accounting with a telemetry session active, keyed as the
+# reference's vmapped trials scan (repro_torch.obs).
+_run_trial_steps = obs.InstrumentedCall(run_steps, "engine.run_trials",
+                                        static_argnums=(3, 4, 5, 6))
 
 
 def _rates_hz(counts: torch.Tensor, t_steps: int, dt_ms: float
@@ -99,12 +108,12 @@ def run_trials(
     seed=s)`` would.  ``device`` defaults to CUDA and raises without it;
     ``partitionable`` is the threefry mode (JAX's
     ``jax_threefry_partitionable``).
+
+    ``chunk_steps=K`` supervises the batch as ``simulate()`` does
+    (:func:`repro_torch.core.health.run_chunked`), bitwise equal to one
+    run, with ``cfg.health`` checked at chunk boundaries against the
+    counters summed over the whole batch.
     """
-    if chunk_steps is not None:
-        raise NotImplementedError("chunk_steps (core/health.py) is not "
-                                  "ported to PyTorch yet")
-    if cfg.health is not None:
-        raise NotImplementedError("SimConfig.health is not ported yet")
     device = resolve_device(device)
     n = c.n
     if syn is None:
@@ -112,8 +121,16 @@ def run_trials(
     stimulus = _resolve_stimulus(cfg, n, sugar_neurons, stimulus).to(device)
     probes = _resolve_probes(cfg, probes)
     carry, seeds = trial_carry(n, cfg, stimulus, seeds, device)
-    carry, records = run_steps(syn, carry, stimulus, cfg, probes, t_steps, n,
-                               partitionable=partitionable)
+
+    def run_chunk(cy, s, k):
+        return _run_trial_steps(syn, cy, stimulus, cfg, probes, k, n, s,
+                                partitionable=partitionable)
+
+    # records are [B, T, ...] -> time axis 1; the rate envelope
+    # normalizes by the batch-summed neuron count
+    carry, records = run_chunked(
+        run_chunk, carry, t_steps, chunk_steps, time_axis=1,
+        health=cfg.health, n=n * len(seeds), dt_ms=cfg.params.dt)
     return TrialResult(counts=carry.counts, dropped=carry.dropped,
                        state=carry.lif, records=records, seeds=seeds)
 

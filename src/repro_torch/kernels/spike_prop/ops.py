@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.connectome import Connectome
 from repro_torch.core.neuron import LIFParams, LIFState, f32
 from .kernel import SRC_BLK, TGT_BLK, fused_deliver_lif, spike_deliver_tiles
@@ -128,15 +129,16 @@ def build_blocked(c: Connectome, quantized: np.ndarray | None = None,
     from repro_torch.core.engine import resolve_device
     device = resolve_device(device)
     n = c.n
-    n_tb = (n + TGT_BLK - 1) // TGT_BLK
-    n_sb = (n + SRC_BLK - 1) // SRC_BLK
-    w = quantized if quantized is not None else c.in_weights
-    tgt = np.repeat(np.arange(n, dtype=np.int64), c.fan_in)
-    blk_id, weights = tile_coo(tgt, c.in_indices, w, n_tb, n_sb, device)
-    stored = int((blk_id < n_sb).sum())
-    occ = c.nnz / max(1, stored * TGT_BLK * SRC_BLK)
-    return BlockedSynapses(blk_id=blk_id, weights=weights, n=n, n_tb=n_tb,
-                           n_sb=n_sb, occupancy=float(occ))
+    with obs.span("build", what="tile_store"):
+        n_tb = (n + TGT_BLK - 1) // TGT_BLK
+        n_sb = (n + SRC_BLK - 1) // SRC_BLK
+        w = quantized if quantized is not None else c.in_weights
+        tgt = np.repeat(np.arange(n, dtype=np.int64), c.fan_in)
+        blk_id, weights = tile_coo(tgt, c.in_indices, w, n_tb, n_sb, device)
+        stored = int((blk_id < n_sb).sum())
+        occ = c.nnz / max(1, stored * TGT_BLK * SRC_BLK)
+        return BlockedSynapses(blk_id=blk_id, weights=weights, n=n, n_tb=n_tb,
+                               n_sb=n_sb, occupancy=float(occ))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,31 +176,32 @@ def build_blocked_sharded(d, device=None) -> ShardedBlockedSynapses:
     from repro_torch.core.engine import resolve_device
     device = resolve_device(device)
     P_, U = d.n_parts, d.part_size
-    n_glob = P_ * U
-    n_tb = (U + TGT_BLK - 1) // TGT_BLK
-    n_sb = (n_glob + SRC_BLK - 1) // SRC_BLK
-    valid = d.syn_src < n_glob
-    _check_weights(d.syn_w[valid])
-    coo = []
-    for p in range(P_):
-        tgt = d.syn_tgt_local[p][valid[p]].astype(np.int64)
-        src = d.syn_src[p][valid[p]].astype(np.int64)
-        blk, slot = _tile_slots(tgt, src, n_tb, n_sb)
-        coo.append((tgt, src, slot, blk))
-    E = max(blk.shape[1] for *_, blk in coo)
-    blk_id = np.full((P_, n_tb, E), n_sb, dtype=np.int32)
-    for p, (*_, blk) in enumerate(coo):
-        blk_id[p, :, :blk.shape[1]] = blk
-    check_row_order(blk_id, n_sb)
-    weights = torch.zeros((P_, n_tb, E, SRC_BLK, TGT_BLK), dtype=torch.int16,
-                          device=device)
-    for p, (tgt, src, slot, _) in enumerate(coo):
-        _scatter_tiles(weights[p], tgt, src, slot, d.syn_w[p][valid[p]])
-    stored = int((blk_id < n_sb).sum())
-    occ = int(valid.sum()) / max(1, stored * TGT_BLK * SRC_BLK)
-    return ShardedBlockedSynapses(
-        blk_id=torch.from_numpy(blk_id).to(device), weights=weights,
-        n_tb=n_tb, n_sb=n_sb, occupancy=float(occ))
+    with obs.span("build", what="tile_store_sharded"):
+        n_glob = P_ * U
+        n_tb = (U + TGT_BLK - 1) // TGT_BLK
+        n_sb = (n_glob + SRC_BLK - 1) // SRC_BLK
+        valid = d.syn_src < n_glob
+        _check_weights(d.syn_w[valid])
+        coo = []
+        for p in range(P_):
+            tgt = d.syn_tgt_local[p][valid[p]].astype(np.int64)
+            src = d.syn_src[p][valid[p]].astype(np.int64)
+            blk, slot = _tile_slots(tgt, src, n_tb, n_sb)
+            coo.append((tgt, src, slot, blk))
+        E = max(blk.shape[1] for *_, blk in coo)
+        blk_id = np.full((P_, n_tb, E), n_sb, dtype=np.int32)
+        for p, (*_, blk) in enumerate(coo):
+            blk_id[p, :, :blk.shape[1]] = blk
+        check_row_order(blk_id, n_sb)
+        weights = torch.zeros((P_, n_tb, E, SRC_BLK, TGT_BLK),
+                              dtype=torch.int16, device=device)
+        for p, (tgt, src, slot, _) in enumerate(coo):
+            _scatter_tiles(weights[p], tgt, src, slot, d.syn_w[p][valid[p]])
+        stored = int((blk_id < n_sb).sum())
+        occ = int(valid.sum()) / max(1, stored * TGT_BLK * SRC_BLK)
+        return ShardedBlockedSynapses(
+            blk_id=torch.from_numpy(blk_id).to(device), weights=weights,
+            n_tb=n_tb, n_sb=n_sb, occupancy=float(occ))
 
 
 def spike_blocks(spikes: torch.Tensor, n: int, n_sb: int) -> torch.Tensor:

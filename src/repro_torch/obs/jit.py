@@ -1,21 +1,25 @@
 """Per-signature call accounting: the port's stand-in for
 ``repro/obs/jit.py::InstrumentedJit``.
 
-PyTorch runs eagerly and compiles nothing, but the serving engine's
-``stats()["compile_cache"]`` keeps the reference's meaning: the first call
-with a new argument signature (the shapes, dtypes and devices of the
-tensor leaves, the structure around them, the types of other leaves) is a
-miss, as a jit retrace is, and a repeat is a hit.  A miss records a
-compile whose trace and compile times are 0 and whose cost is unknown.
+PyTorch runs eagerly and compiles nothing, but ``compile_cache`` keeps the
+reference's meaning: the first call with a new argument signature (the
+values of the static arguments; the shapes, dtypes and devices of the
+tensor leaves of the others, the structure around them, the types of
+other leaves) is a miss, as a jit retrace is, and a repeat is a hit.  A
+miss records a compile whose trace and compile times are 0 and whose cost
+is unknown, and, with a telemetry session active, emits a ``compile``
+event.  The wrapped function runs unchanged either way.
 """
 
 from __future__ import annotations
 
 import hashlib
+from typing import Optional
 
 import torch
 
 from .metrics import MetricsRegistry
+from .trace import active
 
 
 def signature(x):
@@ -34,19 +38,33 @@ def signature(x):
 
 
 class InstrumentedCall:
-    """Wrap ``fn`` so that calls count compile-cache hits and misses in
-    ``registry`` (``compile_cache.hits`` / ``.misses`` and per-function
-    counters), keyed by :func:`signature` of the arguments."""
+    """Wrap ``fn`` so that calls count compile-cache hits and misses
+    (``compile_cache.hits`` / ``.misses`` and per-function counters),
+    keyed by :func:`signature` of the arguments, with the arguments at
+    ``static_argnums`` keyed by value (as jit's static arguments are).
 
-    def __init__(self, fn, name: str, registry: MetricsRegistry):
+    ``registry`` binds always-on accounting (the serving engine's);
+    without one the ambient telemetry session's registry is used, and
+    with no session either the call passes straight through.
+    """
+
+    def __init__(self, fn, name: str,
+                 registry: Optional[MetricsRegistry] = None,
+                 static_argnums=()):
         self.fn = fn
         self.name = name
         self.registry = registry
+        self._static = frozenset(static_argnums)
         self._seen: set = set()
 
-    def __call__(self, *args):
-        key = signature(args)
-        reg = self.registry
+    def __call__(self, *args, **kwargs):
+        tele = active()
+        reg = self.registry if self.registry is not None else (
+            tele.metrics if tele is not None else None)
+        if reg is None:
+            return self.fn(*args, **kwargs)
+        key = tuple(("v", a) if i in self._static else signature(a)
+                    for i, a in enumerate(args))
         if key in self._seen:
             reg.inc("compile_cache.hits")
             reg.inc(f"compile_cache.{self.name}.hits")
@@ -54,9 +72,13 @@ class InstrumentedCall:
             self._seen.add(key)
             reg.inc("compile_cache.misses")
             reg.inc(f"compile_cache.{self.name}.misses")
-            reg.record_compile(self.name, hashlib.sha256(
-                repr(key).encode()).hexdigest()[:12], 0.0, 0.0, None, None)
-        return self.fn(*args)
+            sig = hashlib.sha256(repr(key).encode()).hexdigest()[:12]
+            reg.record_compile(self.name, sig, 0.0, 0.0, None, None)
+            if tele is not None:
+                tele.emit("compile", fn=self.name, signature=sig,
+                          trace_s=0.0, compile_s=0.0, flops=None,
+                          bytes_accessed=None, fallback=False)
+        return self.fn(*args, **kwargs)
 
 
 __all__ = ["InstrumentedCall", "signature"]

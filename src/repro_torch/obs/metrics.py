@@ -1,8 +1,10 @@
-"""Thread-safe metrics registry: counters and compile-cache records.
+"""Thread-safe metrics registry: counters, observations, compile records.
 
-Counterpart of the counter and compile-record parts of
-``repro/obs/metrics.py`` (what ``ServingEngine.stats()`` reads).
-Everything is host-side Python; nothing here touches a device.
+Counterpart of ``repro/obs/metrics.py``.  One registry rides on each
+:class:`repro_torch.obs.Telemetry` session (ambient instrumentation), and
+components with always-on accounting (the serving engine's admission and
+batching counters) own a registry directly.  Everything is host-side
+Python; nothing here touches a device.
 """
 
 from __future__ import annotations
@@ -12,12 +14,14 @@ from typing import Optional
 
 
 class MetricsRegistry:
-    """Counters (``inc``) and per-signature compile records
-    (:meth:`record_compile` / :meth:`compile_snapshot`)."""
+    """Counters (``inc``), observations (``observe``: count and total
+    per key; phase wall times use these), and per-signature compile
+    records (:meth:`record_compile` / :meth:`compile_snapshot`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: dict[str, float] = {}
+        self._observations: dict[str, dict] = {}
         self._compiles: list[dict] = []
 
     def inc(self, name: str, value: float = 1) -> None:
@@ -27,6 +31,13 @@ class MetricsRegistry:
     def get(self, name: str, default: float = 0) -> float:
         with self._lock:
             return self._counters.get(name, default)
+
+    def observe(self, name: str, value: float) -> None:
+        with self._lock:
+            o = self._observations.setdefault(name,
+                                              {"count": 0, "total": 0.0})
+            o["count"] += 1
+            o["total"] += value
 
     def record_compile(self, fn: str, signature: str, trace_s: float,
                        compile_s: float, flops: Optional[float],
@@ -42,12 +53,19 @@ class MetricsRegistry:
             })
 
     def counters(self) -> dict:
-        """Flat name -> number dict of the counters."""
+        """Flat name -> number dict: counters plus flattened observation
+        aggregates (``<name>.count`` / ``<name>.total_s``)."""
         with self._lock:
-            return dict(self._counters)
+            out = dict(self._counters)
+            for name, o in self._observations.items():
+                out[f"{name}.count"] = o["count"]
+                out[f"{name}.total_s"] = round(o["total"], 6)
+            return out
 
     def compile_snapshot(self) -> dict:
-        """Hit/miss totals plus the per-signature records."""
+        """Hit/miss totals plus the per-signature records (attached to
+        ``SimResult.stats`` / ``DistResult.stats`` when a telemetry
+        session is active)."""
         with self._lock:
             return {
                 "hits": int(self._counters.get("compile_cache.hits", 0)),

@@ -624,3 +624,65 @@ def test_run_dist_trials_on_the_card(cuda):
         assert out["blocked"].stats[k].shape == (2,)
         assert torch.equal(out["blocked"].stats[k],
                            out["blocked_fused"].stats[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fx", [False, True])
+def test_fused_kernel_fractional_gstim(cuda, fx):
+    """The fused kernel on RampDrive's fractional stimulus (60 x k / 200
+    weight units, exact halves included, so Q19.12 rounds half to even),
+    bitwise against its plain version."""
+    from repro_torch.exp.stimulus import RampDrive
+    c = synthetic_flywire(1800, seed=2)
+    bs = ops.build_blocked(c, None, cuda)
+    rng = np.random.default_rng(8)
+    s = torch.from_numpy(rng.random(c.n) < 0.05).to(cuda)
+    spk, nspk = ops.pad_spike_blocks(s, bs.n, bs.n_sb)
+    (v, g, refrac), _ = _rows(bs.n_tb, fx, rng, cuda)
+    ramp = RampDrive(weights=torch.ones(1), t_ramp=200)
+    gates = np.array([ramp.gate(int(t)) for t in rng.integers(0, 210, v.shape
+                                                               ).ravel()])
+    gstim = torch.from_numpy((np.float32(60.0) * gates).astype(np.float32)
+                             .reshape(v.shape)).to(cuda)
+    assert bool((gstim.frac() == 0.5).any())
+    kw = dict(params=P, fixed_point=fx)
+    a = K.fused_deliver_lif(bs.blk_id, bs.weights, spk, nspk, v, g, refrac,
+                            gstim, None, None, **kw)
+    b = K.fused_deliver_lif_plain(bs.blk_id, bs.weights, spk, nspk, v, g,
+                                  refrac, gstim, None, None, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_chunked_resumed_opto_ramp_on_the_card(cuda, tmp_path):
+    """opto_ramp in Q19.12 through blocked_fused on the card, in chunks
+    of 70 steps, killed after two and resumed (background checkpoint
+    writes), bitwise equal to its unchunked run and to csr; one fused
+    kernel launch a step."""
+    c = synthetic_flywire(n=3000, target_synapses=90_000, seed=3)
+    kw = dict(fixed_point=True, quantize_bits=9, poisson_to_v=False)
+    T = 300
+
+    def run(engine, t=T, **extra):
+        cfg = SimConfig(engine=engine, **kw)
+        return simulate(c, cfg, t, seed=1, device=cuda,
+                        probes=ProbeSpec(raster=True),
+                        stimulus=build_scenario("opto_ramp", c, cfg,
+                                                t_on_ms=2.0, ramp_ms=15.0,
+                                                t_off_ms=27.0), **extra)
+    want = run("csr")
+    assert int(want.counts.sum()) > 0
+    K.reset_launches()
+    whole = run("blocked_fused")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_deliver_lif"] == T
+    ck = dict(chunk_steps=70, checkpoint_dir=str(tmp_path / "ck"),
+              async_checkpoint=True)
+    run("blocked_fused", 140, **ck)
+    resumed = run("blocked_fused", resume=True, **ck)
+    for r in (whole, resumed):
+        assert torch.equal(r.counts, want.counts)
+        assert torch.equal(r.raster, want.raster)
+        assert torch.equal(r.dropped, want.dropped)
+        assert all(torch.equal(x, y) for x, y in zip(r.state, want.state))

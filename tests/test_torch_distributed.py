@@ -213,9 +213,10 @@ def test_unported_paths_raise(fused_net):
         simulate_distributed(pd, cfg, 3, device="cpu", emulate=False)
     with pytest.raises(NotImplementedError):
         distributed.make_core_mesh(4)
-    for kw in ({"chunk_steps": 2}, {"checkpoint_dir": "x"}, {"resume": True}):
-        with pytest.raises(NotImplementedError):
-            simulate_distributed(pd, cfg, 3, device="cpu", **kw)
+    # supervision is ported (tests/test_torch_health.py); a chunk size
+    # below 1 is refused as the reference refuses it
+    with pytest.raises(ValueError, match="positive"):
+        simulate_distributed(pd, cfg, 3, device="cpu", chunk_steps=-1)
     with pytest.raises(NotImplementedError):
         simulate_distributed(pd, DistConfig(sim=SimConfig(), scheme="faulty"),
                              3, device="cpu")

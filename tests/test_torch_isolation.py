@@ -46,7 +46,16 @@ def test_every_module_imports_with_jax_blocked():
                  "repro_torch.core.compaction",
                  "repro_torch.core.engines.event",
                  "repro_torch.core.exchange.blocked",
-                 "repro_torch.core.distributed"):
+                 "repro_torch.core.distributed",
+                 "repro_torch.core.health",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.launch.simulate",
+                 "repro_torch.obs.events",
+                 "repro_torch.obs.schema",
+                 "repro_torch.obs.trace",
+                 "repro_torch.obs.profiler",
+                 "repro_torch.obs.report",
+                 "repro_torch.obs.check"):
         assert name in names, name
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

@@ -201,12 +201,10 @@ def test_other_scenarios_match(net, scenario, kw):
 def test_unported_features_raise(net):
     _, pc = net
     cfg = SimConfig()
-    for kw in ({"chunk_steps": 10}, {"checkpoint_dir": "x"},
-               {"resume": True}):
-        with pytest.raises(NotImplementedError):
-            simulate(pc, cfg, 5, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        simulate(pc, SimConfig(health=object()), 5, device="cpu")
+    # supervision is ported (tests/test_torch_health.py); a chunk size
+    # below 1 is refused as the reference refuses it
+    with pytest.raises(ValueError, match="positive"):
+        simulate(pc, cfg, 5, device="cpu", chunk_steps=-1)
     with pytest.raises(NotImplementedError):
         simulate(pc, SimConfig(engine="dense"), 5, device="cpu")
     with pytest.raises(ValueError):
@@ -214,14 +212,15 @@ def test_unported_features_raise(net):
     from repro_torch.core.exchange import get_scheme
     with pytest.raises(NotImplementedError):
         get_scheme("faulty")
-    with pytest.raises(NotImplementedError):
-        build_scenario("step_response", pc, cfg)
+    with pytest.raises(ValueError, match="unknown scenario"):
+        build_scenario("no-such-scenario", pc, cfg)
 
 
 def test_flywire_config_mirrors_reference():
     from repro.configs import flywire as ref_fw
     from repro_torch.configs import flywire as fw
-    for a, b in ((ref_fw.CONFIG, fw.CONFIG), (ref_fw.SMOKE, fw.SMOKE)):
+    for a, b in ((ref_fw.CONFIG, fw.CONFIG), (ref_fw.SMOKE, fw.SMOKE),
+                 (ref_fw.CONFIG_1MS, fw.CONFIG_1MS)):
         assert (a.n_neurons, a.target_synapses, a.n_sugar, a.sugar_rate_hz,
                 a.t_steps) == (b.n_neurons, b.target_synapses, b.n_sugar,
                                b.sugar_rate_hz, b.t_steps)

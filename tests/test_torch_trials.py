@@ -222,8 +222,10 @@ def test_unported_and_bad_arguments(net):
     _, pc = net
     with pytest.raises(ValueError, match="seed"):
         run_trials(pc, SimConfig(), 3, seeds=[], device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_trials(pc, SimConfig(), 3, seeds=2, chunk_steps=1, device="cpu")
+    # chunk_steps is ported (tests/test_torch_health.py); a chunk size
+    # below 1 is refused as the reference refuses it
+    with pytest.raises(ValueError, match="positive"):
+        run_trials(pc, SimConfig(), 3, seeds=2, chunk_steps=-1, device="cpu")
     d = build_dcsr(pc, even_partition(pc, 2))
     dcfg = DistConfig(sim=SimConfig(), scheme="event")
     with pytest.raises(NotImplementedError):
