@@ -39,6 +39,18 @@ kernel against its plain PyTorch version, then drives these paths:
   with background checkpoint writes, the ``blocked`` engine, and the
   partitioned CLI at P = 12 unchunked and killed and resumed: one digest
   each), with the delivery kernels' launches counted;
+* simulation serving on the same network: a ``SimServer`` packing
+  ``sugar_feeding`` and ``step_response`` requests four to a batch onto
+  the lane axis (``blocked_fused``, and a shorter server on ``blocked``),
+  a crash retried, every result bitwise its ``run_trials`` lane and a
+  solo ``simulate()``, each kernel launched once a step a batch; an
+  ``event`` tier starved of capacity under ``background_storm``, which
+  escalates and completes bitwise equal to a solo run at the final
+  capacity; at P = 12, ``run_resilient`` recovering an injected
+  partition failure of the ``faulty`` scheme (inner ``blocked``, the
+  fused kernel) bitwise equal to the clean run, and dropped payloads
+  counted; and the serving CLI, ``python -m repro_torch.launch.serve``,
+  as a program with a crash-injected and a poisoned request;
 * the LIF kernels' entry points (``kernels.lif.lif_update`` and
   ``lif_update_fx``) for 1,000 steps at FlyWire size, checked bitwise
   against their plain versions;
@@ -54,7 +66,8 @@ product of the same spikes, and with B = 10 lanes of spikes in one
 launch (the trials run's, and 0.1% and 1% per lane) beside the CSR
 product with the dense [n, 10] spike matrix.  Every phase raises on
 failure; nothing is caught.  The last lines are a JSON line of the
-supervision and scenario numbers, a JSON line of those activity cases
+supervision and scenario numbers, a JSON line of the serving and
+resilience numbers, a JSON line of those activity cases
 (``background_storm``'s spikes among them), a JSON line of kernel
 measurements, the card's name and power limit, and ``{"ok": true,
 "device": ...}``.
@@ -112,6 +125,18 @@ CLI_T_MS = 100.0                # the CLI's full-size run: 1,000 steps
 CLI_CHUNK = 250
 CLI_DIST_T_MS = 10.0            # the partitioned CLI: 100 steps at P = 12
 CLI_DIST_CHUNK = 25
+T_SERVE = 300                   # the server's requests (sugar / step mix)
+SERVE_CHUNK = 50
+SERVE_BATCH = 4
+SERVE_SEEDS = 8
+T_SERVE_OTHER = 100             # the blocked server and the escalation tier
+T_SERVE_TRACE = 100             # a profiled batch in chunks of
+SERVE_TRACE_CHUNK = 25          # this many steps
+SERVE_ESCALATIONS = 5           # the event tier's budget of escalations
+RESILIENT_CHUNK = 50            # run_resilient over faulty at P = 12
+RESILIENT_FAIL_AT = 60          # inside the second chunk
+T_PAYLOAD_DROP = 50
+SERVE_CLI_REQUESTS = 8
 # 9 resident blocks of 128 threads an SM: 65,536 / (9 x 128) registers a
 # thread, rounded down to the allocation's multiple of 8; 19,216 B of
 # shared memory a block, which cuobjdump reports with the 1 KB the card
@@ -1087,6 +1112,295 @@ def phase_trials_yardstick(c, cfg, syn, trials, smi):
     return out
 
 
+def served_equal(res, ref, b=None) -> bool:
+    """A served request's SimResult bitwise against a solo run (``b``
+    None) or lane ``b`` of a run_trials result: counts, every record, the
+    LIF state and ``dropped``."""
+    import torch
+
+    def lane(x):
+        return x if b is None else x[b]
+    return (torch.equal(res.counts, lane(ref.counts))
+            and torch.equal(res.dropped, lane(ref.dropped))
+            and all(torch.equal(x, lane(y))
+                    for x, y in zip(res.state, ref.state))
+            and sorted(res.records) == sorted(ref.records)
+            and all(torch.equal(v, lane(ref.records[k]))
+                    for k, v in res.records.items()))
+
+
+def serve_timed(server, reqs):
+    """Drain ``reqs`` through ``server`` with the launch counts zeroed
+    just before and read just after, under a telemetry session whose
+    ``serve_batch`` events and spans give each batch's lanes, requested
+    steps and wall time (the boundary's read of the lane counters
+    synchronizes the device, so a span ends after its batch's last
+    step; a batch cut by a crash or a breach ran fewer steps).  Returns
+    (requests, launches, [(lanes, steps, wall ms)], stats, the
+    ``serve_retry`` events)."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels.spike_prop import kernel as K
+    events = []
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with obs.telemetry(events.append):
+        done = server.run(reqs)
+        torch.cuda.synchronize()
+        stats = server.stats()
+    launches = dict(K.LAUNCHES)
+    heads = [e for e in events if e["type"] == "serve_batch"]
+    spans = [e for e in events
+             if e["type"] == "span" and e["name"] == "serve_batch"]
+    check(len(heads) == len(spans) == stats["batches"],
+          f"{len(heads)} batches, {len(spans)} spans")
+    batches = [(h["size"], h["t_steps"], s["wall_s"] * 1e3)
+               for h, s in zip(heads, spans)]
+    retries = [e for e in events if e["type"] == "serve_retry"]
+    return done, launches, batches, stats, retries
+
+
+@phase("simulation serving at full size (SimServer, Q19.12)")
+def phase_serving(c, cfg, syn, smi):
+    """A SimServer on ``cfg`` (``blocked_fused``, Q19.12) with
+    ``HealthConfig()``, batches of SERVE_BATCH lanes in chunks of
+    SERVE_CHUNK steps: SERVE_SEEDS requests of T_SERVE steps alternating
+    ``sugar_feeding`` and ``step_response`` (seeds 0..7), and one more
+    ``sugar_feeding`` request whose hook crashes at its second chunk.
+    Every request ends terminal; the crashed one is retried and
+    completes; each completed request is bitwise its lane of one
+    ``run_trials`` of its signature's seeds, and one request a signature
+    (the retried one among them) bitwise a solo ``simulate()`` (the
+    ``step_response`` one, which drives the fused kernel's Q19.12
+    ``gstim`` channel, also on ``csr``); the
+    fused kernel launches once a step a batch, not once a lane.  Then a
+    shorter server on ``blocked`` (``spike_deliver`` counted the same
+    way), equal to ``run_trials`` on ``blocked_fused``; a profiled
+    served batch against ``run_trials`` (device calls a boundary); and
+    an ``event`` tier (``CONFIG.sim``) starved of capacity on
+    ``background_storm``, which escalates and completes bitwise equal to
+    a solo run at the final capacity."""
+    import torch
+    from repro_torch.configs.flywire import CONFIG
+    from repro_torch.core import simulate
+    from repro_torch.core.capacity import escalate_capacity
+    from repro_torch.core.exchange import ExchangeFault
+    from repro_torch.core.health import HealthConfig
+    from repro_torch.exp import ProbeSpec, build_scenario, run_trials
+    from repro_torch.serving import (COMPLETED, SimRequest, SimServeConfig,
+                                     SimServer)
+    torch.cuda.reset_peak_memory_stats()
+    T = T_SERVE
+    probes = {"sugar_feeding": ProbeSpec(raster=True, pop_rate=True),
+              "step_response": ProbeSpec(pop_rate=True, drops=True)}
+    # the sugar requests ask for the paper's population and rate, as the
+    # main path's stimulus does
+    params = {"sugar_feeding": {"n_sugar": CONFIG.n_sugar,
+                                "rate_hz": CONFIG.sugar_rate_hz},
+              "step_response": {}}
+    scenario = ["sugar_feeding", "step_response"]
+    fired = []
+
+    def crash_at_second_chunk(start, stop):
+        if start == SERVE_CHUNK and not fired:
+            fired.append(start)
+            raise ExchangeFault(f"injected crash at step {start}")
+
+    def request(name, seed, t_steps, **kw):
+        return SimRequest(scenario=name, t_steps=t_steps, seed=seed,
+                          params=params[name], probes=probes[name], **kw)
+
+    reqs = [request(scenario[i % 2], i, T) for i in range(SERVE_SEEDS)]
+    reqs.append(request("sugar_feeding", SERVE_SEEDS, T,
+                        fault_hook=crash_at_second_chunk))
+    serve = SimServeConfig(max_batch=SERVE_BATCH, chunk_steps=SERVE_CHUNK,
+                           health=HealthConfig())
+    server = SimServer(c, cfg, serve, syn=syn, device=DEVICE)
+    t0 = time.perf_counter()
+    done, launches, batches, stats, _ = serve_timed(server, reqs)
+    wall = time.perf_counter() - t0
+    crashed = reqs[-1]
+    check(all(r.terminal for r in done) and len(done) == len(reqs),
+          "a request did not end terminal")
+    check(all(r.status == COMPLETED for r in done),
+          f"statuses {[(r.rid, r.status, r.reason) for r in done]}")
+    check(crashed.attempts == 1 and stats["retries"] == 1,
+          f"the crashed request: attempts {crashed.attempts}, retries "
+          f"{stats['retries']}")
+    # two full batches of T steps, the crasher's first chunk, its retry
+    steps = 3 * T + SERVE_CHUNK
+    check(launches == {"spike_deliver": 0, "fused_deliver_lif": steps},
+          f"served launches {launches}, expected {steps} fused: one a step "
+          f"a batch")
+    check(stats["batches"] == 4, f"{stats['batches']} batches, expected 4")
+
+    # every lane against run_trials of its signature, one request per
+    # signature against simulate()
+    trial_ms = {}
+    for name in scenario:
+        group = [r for r in reqs[:SERVE_SEEDS] if r.scenario == name]
+        s_stim = build_scenario(name, c, server.cfg, **params[name])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trials = run_trials(c, server.cfg, T, seeds=[r.seed for r in group],
+                            syn=syn, stimulus=s_stim, probes=probes[name])
+        torch.cuda.synchronize()
+        trial_ms[name] = (time.perf_counter() - t0) * 1e3 / T
+        for b, r in enumerate(group):
+            check(served_equal(r.result, trials, b),
+                  f"served {name} seed {r.seed} != run_trials lane {b}")
+        if name == "sugar_feeding":     # step_response draws nothing
+            check(not torch.equal(trials.counts[0], trials.counts[1]),
+                  f"{name}: lanes 0 and 1 are the same trial")
+        one = crashed if name == "sugar_feeding" else group[0]
+        solo = simulate(c, server.cfg, T, seed=one.seed, syn=syn,
+                        stimulus=s_stim, probes=probes[name])
+        check(served_equal(one.result, solo),
+              f"served {name} seed {one.seed} != simulate()")
+        if name == "step_response":
+            # the step drives the fused kernel's Q19.12 gstim channel:
+            # the packed lane against csr, which converts on its own
+            solo = simulate(c, dataclasses.replace(server.cfg, engine="csr"),
+                            T, seed=one.seed, stimulus=s_stim,
+                            probes=probes[name])
+            check(served_equal(one.result, solo),
+                  f"served {name} seed {one.seed} != simulate() on csr")
+        del trials, solo
+    spikes = {r.seed: int(r.result.counts.sum()) for r in done}
+    # the full batches ran all their steps; the crasher's first ran one
+    # chunk
+    full = [ms / t for lanes, t, ms in batches if lanes == SERVE_BATCH]
+    print(f"served {len(done)} requests of {T} steps in {wall:.3f} s: "
+          f"batches (lanes, steps, wall ms) "
+          f"{[(n, t, round(ms, 3)) for n, t, ms in batches]}, the full ones "
+          f"{[round(ms, 4) for ms in full]} ms/step; run_trials "
+          f"at B = {SERVE_BATCH}: "
+          f"{json.dumps({k: round(v, 4) for k, v in trial_ms.items()})} "
+          f"ms/step; latency p50 {stats['latency_p50_s']:.3f} s, p99 "
+          f"{stats['latency_p99_s']:.3f} s; spikes {json.dumps(spikes)}; "
+          f"launches {launches}; all bitwise equal to run_trials lanes and "
+          f"simulate(); card {smi}", flush=True)
+    del done
+
+    # the blocked engine: the same tile store, spike_deliver once a step
+    To = T_SERVE_OTHER
+    blocked = SimServer(c, dataclasses.replace(cfg, engine="blocked"), serve,
+                        syn=syn, device=DEVICE)
+    reqs_b = [request("sugar_feeding", s, To) for s in range(SERVE_BATCH)]
+    done_b, launches_b, batches_b, _, _ = serve_timed(blocked, reqs_b)
+    sugar = build_scenario("sugar_feeding", c, server.cfg,
+                           **params["sugar_feeding"])
+    fused_trials = run_trials(c, server.cfg, To, seeds=SERVE_BATCH, syn=syn,
+                              stimulus=sugar, probes=probes["sugar_feeding"])
+    check(launches_b == {"spike_deliver": To, "fused_deliver_lif": 0}
+          and len(batches_b) == 1,
+          f"blocked server launches {launches_b}, expected {To} "
+          f"spike_deliver in one batch; batches {batches_b}")
+    for b, r in enumerate(done_b):
+        check(r.status == COMPLETED and served_equal(r.result, fused_trials,
+                                                     b),
+              f"blocked server seed {r.seed} != blocked_fused run_trials")
+    del done_b, fused_trials, blocked
+
+    # device calls a boundary: a served batch (chunks of
+    # SERVE_TRACE_CHUNK, the lanes' counters read at each boundary)
+    # against run_trials of the same lanes in one chunk
+    Tp, Kp = T_SERVE_TRACE, SERVE_TRACE_CHUNK
+    trace_serve = SimServeConfig(max_batch=SERVE_BATCH, chunk_steps=Kp,
+                                 health=HealthConfig())
+
+    def served():
+        SimServer(c, cfg, trace_serve, syn=syn, device=DEVICE).run(
+            [request("sugar_feeding", s, Tp) for s in range(SERVE_BATCH)])
+
+    def trials_run():
+        run_trials(c, server.cfg, Tp, seeds=SERVE_BATCH, syn=syn,
+                   stimulus=sugar, probes=probes["sugar_feeding"])
+    issued = {}
+    for label, fn in (("served", served), ("run_trials", trials_run)):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        busy = sum(e.time_range.end - e.time_range.start for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        issued[label] = {
+            "issued": sum(1 for e in events if re.match(
+                r"cu(da)?(Launch|Memcpy|Memset)", e.name)),
+            "wall_ms_per_step": wall_ms / Tp, "busy_ms_per_step": busy / Tp}
+    boundaries = Tp // Kp + 1          # the read at step 0 and each chunk's
+    per_boundary = ((issued["served"]["issued"]
+                     - issued["run_trials"]["issued"]) / boundaries)
+    print(f"served batch of {SERVE_BATCH} lanes over {Tp} steps in chunks "
+          f"of {Kp} against run_trials in one chunk: "
+          f"{json.dumps(issued)}; {per_boundary:.2f} device calls a "
+          f"boundary ({boundaries} reads of the lane counters)", flush=True)
+
+    # the escalation tier: CONFIG.sim (event) with its default budgets on
+    # background_storm, where max_drop_rate = 0 is breached
+    storm_probes = ProbeSpec(pop_rate=True, drops=True)
+    esc_cfg = dataclasses.replace(CONFIG.sim,
+                                  health=HealthConfig(max_drop_rate=0.0))
+    tier = SimServer(c, esc_cfg, SimServeConfig(
+        max_batch=SERVE_BATCH, chunk_steps=SERVE_CHUNK,
+        max_escalations=SERVE_ESCALATIONS), device=DEVICE)
+    reqs_e = [SimRequest(scenario="background_storm", t_steps=To, seed=s,
+                         probes=storm_probes) for s in range(2)]
+    t0 = time.perf_counter()
+    done_e, _, batches_e, stats_e, retries_e = serve_timed(
+        tier, reqs_e)
+    esc_s = time.perf_counter() - t0
+    check(all(r.status == COMPLETED for r in done_e),
+          f"escalation tier: {[(r.status, r.reason) for r in done_e]}")
+    check(stats_e["escalations"] >= 1 and stats_e["escalated_tiers"] == 1
+          and len(batches_e) == stats_e["escalations"] + 1,
+          f"escalation tier stats {stats_e}")
+    # the tier's final capacity: one escalate_capacity per drop-rate
+    # retry the server announced
+    bumps = [e["attempt"] for e in retries_e if e["reason"] == "drop_rate"]
+    check(bumps == list(range(1, stats_e["escalations"] + 1)),
+          f"drop-rate retries {retries_e}, escalations "
+          f"{stats_e['escalations']}")
+    final = CONFIG.sim.capacity
+    for _ in bumps:
+        final = escalate_capacity(final)
+    storm = build_scenario("background_storm", c, esc_cfg)
+    for r in done_e:
+        solo = simulate(c, dataclasses.replace(tier.cfg, capacity=final), To,
+                        seed=r.seed, stimulus=storm, probes=storm_probes)
+        check(int(solo.dropped) == 0 and served_equal(r.result, solo),
+              f"escalated storm seed {r.seed} != simulate() at {final}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 80.0, f"peak device memory {peak:.3f} GB")
+    storm_spikes = [int(r.result.counts.sum()) // To for r in done_e]
+    print(f"escalation tier (event, background_storm, {To} steps, 2 lanes): "
+          f"{stats_e['escalations']} escalations from "
+          f"{CONFIG.sim.capacity} to {final} in {esc_s:.3f} s, attempts "
+          f"(lanes, steps, wall ms) "
+          f"{[(n, t, round(ms, 3)) for n, t, ms in batches_e]}, the last "
+          f"{batches_e[-1][2] / To:.4f} ms/step, spikes a "
+          f"step per lane {storm_spikes}; bitwise equal to simulate() at "
+          f"the final capacity; peak device memory {peak:.3f} GB; card "
+          f"{smi}", flush=True)
+    return {"batch_ms_per_step": full, "batches": batches,
+            "run_trials_ms_per_step": trial_ms,
+            "latency_p50_s": stats["latency_p50_s"],
+            "latency_p99_s": stats["latency_p99_s"], "wall_s": wall,
+            "boundary_trace": issued,
+            "device_calls_per_boundary": per_boundary,
+            "escalations": stats_e["escalations"],
+            "escalated_capacity": dataclasses.asdict(final),
+            "escalation_s": esc_s, "peak_gb": peak,
+            "launches": {"fused_deliver_lif": launches["fused_deliver_lif"],
+                         "spike_deliver": launches_b["spike_deliver"]}}
+
+
 @phase("LIF kernels against plain (n = 139,255)")
 def phase_lif_check():
     """Both LIF kernels against their plain versions at FlyWire size, on
@@ -1705,6 +2019,91 @@ def dist_trials(d, cfg, stim, state, smi):
     return {"ms": ms, "launches": launches, "max_abs_err": err}
 
 
+def dist_resilience(c, d, cfg, stim, clean, ms_clean, smi):
+    """``run_resilient`` over ``simulate_distributed`` on the ``faulty``
+    scheme (inner ``blocked``, the fused kernel): partition 1 fails at
+    step RESILIENT_FAIL_AT of T_DIST, in chunks of RESILIENT_CHUNK with
+    checkpoints; it restarts once from the last checkpoint and is bitwise
+    ``clean``, phase_distributed's unfused ``blocked`` run (``ms_clean``
+    a step), the fused kernel launched once per partition and step run.
+    Then dropped payloads on inner ``event`` under ``activity_sweep``
+    (partition 0's outgoing spikes zeroed from step 10 on) count more
+    dropped synapse events than the clean run."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import (DistConfig, FaultSpec, configure_faulty,
+                                  run_resilient, simulate_distributed)
+    from repro_torch.exp import ProbeSpec, build_scenario
+    from repro_torch.kernels.spike_prop import kernel as K
+    probes = ProbeSpec(raster=True)
+    T, Kc = T_DIST, RESILIENT_CHUNK
+    fused = DistConfig(sim=dataclasses.replace(cfg, engine="blocked_fused"),
+                       scheme="faulty")
+    work = work_dir("resilient")
+    configure_faulty(inner="blocked", spec=FaultSpec(
+        partition=1, fail_at=(RESILIENT_FAIL_AT,)))
+    attempts, events = [], []
+
+    def attempt(resume, cap):
+        attempts.append(resume)
+        return simulate_distributed(
+            d, fused, T, seed=0, stimulus=stim, probes=probes,
+            chunk_steps=Kc, checkpoint_dir=work, resume=resume is not None)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with obs.telemetry(events.append):
+            got = run_resilient(attempt, checkpoint_dir=work)
+        torch.cuda.synchronize()
+    finally:
+        configure_faulty()
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    resume_at = RESILIENT_FAIL_AT // Kc * Kc
+    restarts = [e for e in events if e["type"] == "restart"]
+    check(attempts == [None, resume_at] and len(restarts) == 1
+          and restarts[0]["error"] == "ExchangeFault",
+          f"attempts {attempts}, restarts {restarts}")
+    check(same_dist(got, clean) and torch.equal(got.raster, clean.raster),
+          f"the recovered faulty run != the clean blocked run at P = "
+          f"{P_DIST}")
+    check(launches == {"spike_deliver": 0,
+                       "fused_deliver_lif": P_DIST * T},
+          f"recovered run launches {launches}, expected {P_DIST * T} fused "
+          f"({resume_at} steps before the failure, {T - resume_at} after)")
+    chunk_s = [e["wall_s"] for e in events if e["type"] == "chunk"]
+
+    Tq = T_PAYLOAD_DROP
+    sweep = build_scenario("activity_sweep", c, cfg)
+    base, _, _ = dist_run(d, cfg, "event", Tq, sweep, probes,
+                          f"activity_sweep event, {Tq} steps")
+    configure_faulty(inner="event", spec=FaultSpec(
+        partition=0, drop_payload_at=tuple(range(10, Tq))))
+    try:
+        lost, _, _ = dist_run(d, cfg, "faulty", Tq, sweep, probes,
+                              f"activity_sweep faulty(event), partition 0's "
+                              f"payload dropped from step 10")
+    finally:
+        configure_faulty()
+    check(lost.dropped > base.dropped,
+          f"dropped payloads counted {lost.dropped}, clean {base.dropped}")
+    outside = secs - sum(chunk_s)
+    print(f"run_resilient at P = {P_DIST}: partition 1 failed at step "
+          f"{RESILIENT_FAIL_AT}, restarted from the step-{resume_at} "
+          f"checkpoint, {T} steps in {secs:.3f} s, {outside:.3f} s of it "
+          f"outside the chunks (chunks {[round(x, 3) for x in chunk_s]} s; "
+          f"the clean unfused blocked run {ms_clean * T / 1e3:.3f} s), "
+          f"bitwise equal to the clean run, "
+          f"launches {launches}; payload drop: dropped {lost.dropped} vs "
+          f"{base.dropped} clean over {Tq} steps; card {smi}", flush=True)
+    return {"seconds": secs, "clean_seconds": ms_clean * T / 1e3,
+            "chunk_s": chunk_s, "outside_chunks_s": outside,
+            "resume_step": resume_at,
+            "launches": launches["fused_deliver_lif"],
+            "dropped_faulty": lost.dropped, "dropped_clean": base.dropped}
+
+
 @phase("partitioned simulator, P = 12, full FlyWire (Q19.12)")
 def phase_distributed(c, stim, smi):
     """The paper's partitioned mapping, its 12 partitions emulated on the
@@ -1788,8 +2187,11 @@ def phase_distributed(c, stim, smi):
     check(peak < 80.0, f"peak device memory {peak:.3f} GB")
     ms = {label: r[1] for label, r in runs.items()}
     yard = sharded_kernels(d, state, base, cfg, smi)
+    clean, ms_clean, _ = runs["blocked"]
     del runs, bl, bf
     trials = dist_trials(d, cfg, stim, state, smi)
+    resilient = dist_resilience(c, d, cfg, stim, clean, ms_clean, smi)
+    del clean
 
     fused_sim = dataclasses.replace(cfg, engine="blocked_fused")
     wall_ms, kernels = device_profile(lambda: simulate_distributed(
@@ -1820,7 +2222,7 @@ def phase_distributed(c, stim, smi):
     del a, b, base, state, d, greedy
     gc.collect()
     torch.cuda.empty_cache()
-    return yard, launches, ms, trials
+    return yard, launches, ms, trials, resilient
 
 
 WORK_DIR = os.path.join("build", "chip_smoke")   # under the checkout
@@ -2204,6 +2606,54 @@ def phase_cli(smi):
     return launches
 
 
+@phase("the serving CLI on full FlyWire (python -m repro_torch.launch.serve)")
+def phase_serve_cli(smi):
+    """``python -m repro_torch.launch.serve`` as a program at full FlyWire
+    size on ``blocked_fused``, with a crash-injected and a NaN-poisoned
+    request and a telemetry stream: it exits 0, the poisoned request is
+    quarantined, every request ends terminal, the stream passes
+    ``obs/check.py`` and ``obs/report.py`` summarizes it."""
+    from repro_torch.obs import report
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(here, "src")}
+    tele = os.path.join(work_dir("serve_cli"), "serve.jsonl")
+    args = ["--n", str(N_FULL), "--synapses", str(SYN_FULL), "--engine",
+            "blocked_fused", "--requests", str(SERVE_CLI_REQUESTS),
+            "--inject-fault", "--poison", "--telemetry", tele, "--device",
+            DEVICE]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        *args], cwd=here, env=env, capture_output=True,
+                       text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    print(f"$ python -m repro_torch.launch.serve {' '.join(args)}: exit "
+          f"{r.returncode}, {secs:.3f} s", flush=True)
+    for line in r.stdout.splitlines():
+        print(f"  {line}", flush=True)
+    check(r.returncode == 0, f"the serving CLI failed:\n{r.stderr[-3000:]}")
+    lines = [ln for ln in r.stdout.splitlines() if " -> " in ln]
+    check(len(lines) == SERVE_CLI_REQUESTS + 1, f"{len(lines)} request lines")
+    poisoned = lines[-1]
+    check("-> quarantined (nonfinite)" in poisoned,
+          f"the poisoned request: {poisoned}")
+    check(all("-> completed" in ln for ln in lines[:-1]),
+          "a healthy request did not complete")
+    # one retry for the crash, one for the poison's first health failure
+    check(f"{SERVE_CLI_REQUESTS} completed / 0 rejected / 1 quarantined"
+          in r.stdout and "(2 retries, 0 escalations, 0 shed)" in r.stdout,
+          "the summary line")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.obs.check",
+                          tele], cwd=here, env=env, capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"obs.check: {out.stdout[-2000:]}")
+    check(report.main([tele]) == 0, "empty serving telemetry stream")
+    latency = [ln for ln in r.stdout.splitlines() if "latency" in ln]
+    print(f"serving CLI: {secs:.3f} s (start-up and set-up included); "
+          f"{latency[0] if latency else 'no latency line'}; card {smi}",
+          flush=True)
+    return secs
+
+
 def flywire_section(smi):
     """The simulate() phases at full FlyWire size, then the P = 12
     simulate_distributed() phase; returns the kernel numbers of the two
@@ -2240,14 +2690,16 @@ def flywire_section(smi):
     lanes = phase_trials_yardstick(c, cfg, syn, trials, smi)
     for name, cases in lanes.items():
         lanes[name] = {"launches": trial_launches[name], "cases": cases}
-    del syn, trials
+    del trials
+    serving = phase_serving(c, cfg, syn, smi)
+    del syn
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated() / 1e9
     check(left < 1.0, f"{left:.3f} GB still allocated after the monolithic "
           f"FlyWire phases")
-    sharded, sharded_launches, ms_dist, dist_trials_out = phase_distributed(
-        c, stim, smi)
+    sharded, sharded_launches, ms_dist, dist_trials_out, resilient = (
+        phase_distributed(c, stim, smi))
     del stim, c
     gc.collect()
     torch.cuda.empty_cache()
@@ -2260,7 +2712,8 @@ def flywire_section(smi):
           f"allocated", flush=True)
     extra = {"supervision": supervision, "scenarios": scenarios,
              "background_storm_busy_ms_per_step": storm_busy,
-             "scenario_launches": scenario_launches}
+             "scenario_launches": scenario_launches, "serving": serving,
+             "resilient_p12": resilient}
     return (yard, activity, launches, sharded, sharded_launches, lanes,
             dist_trials_out, extra)
 
@@ -2283,6 +2736,7 @@ def main() -> int:
     (yard, activity, launches, sharded, sharded_launches, lanes,
      dist_trials_out, extra) = flywire_section(smi)
     cli_launches = phase_cli(smi)
+    extra["serve_cli_s"] = phase_serve_cli(smi)
     lif_yard, lif_ms_step = phase_lif_path(smi)
     for name, (ms, plain_ms, bound, lib_ms, err, n) in lif_yard.items():
         yard[name] = (ms, plain_ms, bound, lib_ms, err)
@@ -2335,6 +2789,15 @@ def main() -> int:
                 kernels[-1]["cli_p12_launches"] = cli_launches[
                     "fused_deliver_lif_p12"]
                 kernels[-1]["scenario_launches"] = extra["scenario_launches"]
+        if name in extra["serving"]["launches"]:
+            # the simulation server's batches (the fused kernel) and the
+            # blocked server's (spike_deliver), counted from 0 before
+            # each; the fused kernel also under run_resilient at P = 12
+            kernels[-1]["serving_launches"] = extra["serving"]["launches"][
+                name]
+            if name == "fused_deliver_lif":
+                kernels[-1]["resilient_p12_launches"] = extra[
+                    "resilient_p12"]["launches"]
     check(all(k["launches"] > 0 for k in kernels)
           and all(k["sharded_p12"]["launches"] > 0
                   and k["sharded_p12"]["trials_b3_launches"] > 0
@@ -2344,6 +2807,10 @@ def main() -> int:
     check(all(k["cli_launches"] > 0 for k in kernels if "cli_launches" in k)
           and len([k for k in kernels if "cli_launches" in k]) == 2,
           "a delivery kernel never launched on the CLI path")
+    check(all(k["serving_launches"] > 0 for k in kernels
+              if "serving_launches" in k)
+          and len([k for k in kernels if "serving_launches" in k]) == 2,
+          "a delivery kernel never launched on the serving path")
     print(f"total {time.perf_counter() - t_all:.3f} s; LIF entry points "
           f"{json.dumps({k: round(v, 5) for k, v in lif_ms_step.items()})} "
           f"ms/step", flush=True)
@@ -2352,6 +2819,9 @@ def main() -> int:
                       "scenarios": extra["scenarios"],
                       "background_storm_busy_ms_per_step":
                       extra["background_storm_busy_ms_per_step"]}))
+    print(json.dumps({"serving": extra["serving"],
+                      "resilient_p12": extra["resilient_p12"],
+                      "serve_cli_s": extra["serve_cli_s"]}))
     print(json.dumps({"activity": activity}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,14 +1,17 @@
 """One capacity vocabulary for every event-driven path.
 
-Copy of the parts of ``repro/core/capacity.py`` that ``SimConfig`` and
-``DistConfig`` carry: the monolithic ``event`` engine and the partitioned
-``event`` and ``blocked`` exchange schemes read the budgets.
-``escalate_capacity`` belongs to the supervision layer, not ported yet.
+Counterpart of ``repro/core/capacity.py``: the budgets that ``SimConfig``
+and ``DistConfig`` carry (the monolithic ``event`` engine and the
+partitioned ``event`` and ``blocked`` exchange schemes read them), and
+:func:`escalate_capacity`, which the supervisor
+(:func:`repro_torch.core.health.run_resilient`) and the serving layer
+apply after a drop-rate breach.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 
 
@@ -57,5 +60,25 @@ def merge_legacy_capacity(capacity: CapacityConfig | None,
     return cap
 
 
+def escalate_capacity(cap: CapacityConfig | None,
+                      factor: float = 2.0) -> CapacityConfig | None:
+    """A larger :class:`CapacityConfig` after a drop-rate breach: every
+    budget scaled by ``factor`` and rounded up, so repeated escalations
+    converge geometrically to a lossless provisioning.  ``None`` passes
+    through (no base capacity to escalate: the supervisor then surfaces
+    the breach instead of looping)."""
+    if cap is None:
+        return None
+    if factor <= 1.0:
+        raise ValueError(f"escalation factor must exceed 1, got {factor}")
+
+    def up(x):
+        return int(math.ceil(x * factor))
+    return CapacityConfig(
+        spike_capacity=up(cap.spike_capacity),
+        syn_budget=up(cap.syn_budget),
+        block_capacity=up(cap.block_capacity) if cap.block_capacity else 0)
+
+
 __all__ = ["CapacityConfig", "DISTRIBUTED_CAPACITY", "MONOLITHIC_CAPACITY",
-           "merge_legacy_capacity"]
+           "escalate_capacity", "merge_legacy_capacity"]

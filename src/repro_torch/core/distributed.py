@@ -2,18 +2,22 @@
 
 Counterpart of ``repro/core/distributed.py``.  A DCSR snapshot's P
 partitions each run the step of :mod:`repro_torch.core.step` through a
-registered exchange scheme (``bitmap``, ``event`` or ``blocked``); the
-only contact between partitions is the scheme's collective.
+registered exchange scheme (``bitmap``, ``event``, ``blocked``, or the
+``faulty`` wrapper of one of them); the only contact between partitions
+is the scheme's collective.
 
 The reference runs the partitions as one program, vmapped with a named
 axis on one device (``emulate=True``) or sharded over a device mesh.
 Here ``emulate=True`` runs them on one device, one after another: each
 step, every partition's exchange half, then the emulated ``all_gather``
 of their contributions in partition order, then every partition's rest
-of the step (:func:`_run_emulated`).  The PRNG streams are per partition
-and independent, so the order of the partitions changes no result.  The
-real multi-device path (``emulate=False``, ``torch.distributed`` over
-several GPUs) is not ported: it raises ``NotImplementedError``.
+of the step (:func:`_run_emulated`).  Each step's exchange sees the
+absolute step index, so the ``faulty`` scheme's injections fire at the
+same steps in a resumed run as in an unbroken one.  The PRNG streams
+are per partition and independent, so the order of the partitions
+changes no result.  The real multi-device path (``emulate=False``,
+``torch.distributed`` over several GPUs) is not ported: it raises
+``NotImplementedError``.
 
 Supervision (``chunk_steps``, checkpoints, ``sim.health``) and telemetry
 go through :func:`repro_torch.core.health.run_chunked` as on the
@@ -174,7 +178,7 @@ def _run_emulated(scheme, states, carries, stims, pads, vrows,
     common = dict(scheme=scheme, cap=cfg.capacity, partitionable=partitionable)
     records: list[dict[str, list]] = [{} for _ in range(P_)]
     for t in range(t0, t0 + t_steps):
-        exs = [step_exchange(carries[p], state=states[p], stim=stims[p],
+        exs = [step_exchange(carries[p], t, state=states[p], stim=stims[p],
                              topo=topos[p], **common) for p in range(P_)]
         gathered = all_gather([ex.sent for ex in exs])
         for p in range(P_):
@@ -306,7 +310,8 @@ def run_partitioned(d: DCSR, cfg: DistConfig, t_steps: int, keys,
     carries, stacked = run_chunked(
         run_chunk, carries, t_steps, chunk_steps, time_axis=2,
         health=cfg.sim.health, n=d.n_orig, dt_ms=cfg.sim.params.dt,
-        checkpointer=ckpt, resume=resume)
+        checkpointer=ckpt, resume=resume,
+        host_hook=getattr(scheme, "host_supervise", None))
     records = [{name: v[p] for name, v in stacked.items()}
                for p in range(P_)]
     return carries, records, owner

@@ -10,25 +10,27 @@ event    all-gather of K-slot compacted active-id lists (volume follows
 blocked  sharded int16 tile store: event exchange across the cut, the
          tile-gated delivery kernel inside each partition; with
          ``sim.engine="blocked_fused"`` the fused delivery->LIF kernel
+faulty   any of the above with injected faults (dropped or corrupted
+         payloads, partition failures, stragglers); see
+         :func:`configure_faulty`
 ======== ==================================================================
-
-The reference's fault-injecting ``faulty`` wrapper is not ported yet.
 """
 
-from .base import (NOT_PORTED, ExchangeScheme, Topology, all_gather,
-                   available_schemes, get_scheme, memoized_build,
-                   register_scheme)
+from .base import (ExchangeScheme, Topology, all_gather, available_schemes,
+                   get_scheme, memoized_build, register_scheme)
 from .arrays import DistArrays, build_dist_arrays, build_src_gfo
-from . import bitmap, blocked, event, local  # noqa: F401 (register)
+from . import bitmap, blocked, event, faulty, local  # noqa: F401 (register)
 from .bitmap import BitmapExchange
 from .blocked import BlockedExchange, ShardedBlockedState
 from .event import EventExchange, gather_active_events
+from .faulty import ExchangeFault, FaultSpec, FaultyExchange, configure_faulty
 from .local import LocalExchange
 
 __all__ = [
-    "ExchangeScheme", "NOT_PORTED", "Topology", "all_gather",
+    "ExchangeScheme", "Topology", "all_gather",
     "available_schemes", "get_scheme", "memoized_build", "register_scheme",
     "DistArrays", "build_dist_arrays", "build_src_gfo",
     "BitmapExchange", "BlockedExchange", "EventExchange", "LocalExchange",
     "ShardedBlockedState", "gather_active_events",
+    "ExchangeFault", "FaultSpec", "FaultyExchange", "configure_faulty",
 ]

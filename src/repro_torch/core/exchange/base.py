@@ -22,8 +22,9 @@ and each stats counter [B]), as the reference's scheme sees one lane
 under ``vmap``; a lane's exchange reaches only that lane of the other
 partitions.  Without the leading axis a call is one lane.
 
-The ``faulty`` wrapper scheme is not ported yet; asking for it raises
-``NotImplementedError``.
+A scheme may also offer the step-aware ``exchange_at(state, delayed, cap,
+topo, t)`` (the ``faulty`` wrapper does); the step then calls it with the
+absolute step in place of ``exchange``.
 """
 
 from __future__ import annotations
@@ -32,10 +33,6 @@ import weakref
 from typing import Any, NamedTuple, Protocol, runtime_checkable
 
 import torch
-
-#: Schemes of ``repro.core.exchange`` that this package does not have yet.
-NOT_PORTED = ("faulty",)
-
 
 class Topology(NamedTuple):
     """Static partition geometry threaded through every scheme call."""
@@ -96,9 +93,6 @@ def register_scheme(cls):
 def get_scheme(name: str) -> ExchangeScheme:
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"exchange scheme {name!r} is not ported to PyTorch yet")
     raise ValueError(f"unknown exchange scheme {name!r}; "
                      f"available: {sorted(_REGISTRY)}")
 
@@ -128,6 +122,6 @@ def memoized_build(source: Any, key: str, build_fn):
     return out
 
 
-__all__ = ["ExchangeScheme", "NOT_PORTED", "Topology", "all_gather",
+__all__ = ["ExchangeScheme", "Topology", "all_gather",
            "available_schemes", "get_scheme", "memoized_build",
            "register_scheme"]

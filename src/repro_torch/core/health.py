@@ -1,9 +1,8 @@
-"""Supervision: health sentinels in the step, chunked runs, and
-checkpoint/resume at chunk boundaries.
+"""Supervision: health sentinels in the step, chunked runs,
+checkpoint/resume at chunk boundaries, and the crash/escalation
+supervisor.
 
-Counterpart of the parts of ``repro/core/health.py`` that the simulation
-CLI reaches (the restart/escalation supervisor ``run_resilient`` and
-``BackoffPolicy`` belong to simulation serving and are not ported yet):
+Counterpart of ``repro/core/health.py``:
 
 * **Sentinels** (:func:`health_stats_init` / :func:`health_step_stats`)
   are per-lane counters accumulated in the step next to the exchange
@@ -15,13 +14,20 @@ CLI reaches (the restart/escalation supervisor ``run_resilient`` and
   the device.  Each chunk runs from its absolute step index, so the
   clocked stimuli see the steps they would see in one run, and the result
   is bitwise the unchunked run's.  At each boundary the host checks the
-  :class:`HealthConfig` thresholds against the chunk's counter deltas.
+  :class:`HealthConfig` thresholds against the chunk's counter deltas;
+  before each chunk it runs an optional ``host_hook`` (the ``faulty``
+  exchange scheme's injected failures and stragglers).
 * **Checkpoint/resume** (:class:`SimCheckpointer`): at chunk boundaries
   the carry and the records so far are written through
   :mod:`repro_torch.train.checkpoint` (copied to the host first, then
   written atomically, optionally on a background thread), so a killed
   run resumed from the newest checkpoint reproduces the uninterrupted
   run bit for bit.
+* **Supervision policy** (:func:`run_resilient`, paced by
+  :class:`BackoffPolicy`): poison (NaN / saturation / rate envelope)
+  re-raises; a crash restarts from the newest checkpoint; a drop-rate
+  breach escalates the capacity and resumes from the last healthy
+  checkpoint.
 
 A carry here is a :class:`~repro_torch.core.step.SimCarry` (one run, or a
 trial batch on its lane axis), or the list of one such carry per
@@ -29,19 +35,24 @@ partition that the partitioned runner threads; every counter reduction
 sums over all of them.  With a telemetry session active
 (:mod:`repro_torch.obs`) each chunk boundary synchronizes the device and
 emits one ``chunk`` event, plus ``checkpoint`` and ``health`` events as
-they happen; without one, nothing waits for the device.
+they happen, and the supervisor emits ``restart`` and ``escalation``
+events; without one, nothing waits for the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import random
 import re
+import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import obs
+
+from .capacity import CapacityConfig, escalate_capacity
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +94,31 @@ class SimulationHealthError(RuntimeError):
 
 #: kinds that capacity escalation can fix (everything else is poison)
 RECOVERABLE_KINDS = ("drop_rate",)
+
+
+@dataclasses.dataclass(frozen=True)
+class BackoffPolicy:
+    """Jittered exponential backoff for supervision retry loops: retry
+    ``attempt`` (1-based) waits ``base_s * factor**(attempt-1)`` seconds,
+    capped at ``cap_s``, times ``1 + jitter * (2u - 1)`` for a uniform
+    draw u.  Consumed by :func:`run_resilient` and the serving layer
+    (:mod:`repro_torch.serving.sim`); the chosen delay rides on the
+    telemetry event (``backoff_s``)."""
+
+    base_s: float = 0.1
+    factor: float = 2.0
+    cap_s: float = 30.0
+    jitter: float = 0.25     # fraction of the delay, uniform in [-j, +j]
+
+    def delay(self, attempt: int, rng=None) -> float:
+        """Seconds before retry ``attempt``.  ``rng`` is anything with
+        ``.random()`` (default: the ``random`` module); a seeded
+        ``random.Random`` gives the reference's delays for its seed."""
+        d = min(self.base_s * self.factor ** max(0, attempt - 1), self.cap_s)
+        if self.jitter:
+            u = (rng if rng is not None else random).random()
+            d *= 1.0 + self.jitter * (2.0 * u - 1.0)
+        return max(0.0, d)
 
 
 # --------------------------------------------------------------------------
@@ -298,7 +334,7 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
                 time_axis: int = 0, health: Optional[HealthConfig] = None,
                 n: int = 1, dt_ms: float = 0.1,
                 checkpointer: Optional[SimCheckpointer] = None,
-                resume: bool = False):
+                resume: bool = False, host_hook=None):
     """Drive ``ceil(T/K)`` chunks with host supervision between them:
     ``run_chunk(carry, start_step, k) -> (carry, records)`` runs K steps
     from the absolute step ``start_step`` and leaves the given carry as
@@ -308,7 +344,8 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
 
     Health thresholds are checked (and raise) *before* the chunk is
     checkpointed, so the newest checkpoint on disk is always the last
-    healthy boundary.
+    healthy boundary.  ``host_hook(start, stop)`` runs before each chunk
+    (the ``faulty`` scheme's injected failures and stragglers).
     With a telemetry session active each boundary synchronizes the
     device and emits a ``chunk`` event (wall time, steps/s, cumulative
     and per-chunk counters), plus ``checkpoint`` and ``health`` events;
@@ -331,6 +368,8 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
     s = start
     while s < t_steps:
         k = min(chunk_steps, t_steps - s)
+        if host_hook is not None:
+            host_hook(s, s + k)
         with obs.span("chunk", step=s) as sp:
             carry, rec = run_chunk(carry, s, k)
             if tele is not None:
@@ -371,7 +410,90 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
     return carry, concat_records(chunks, time_axis)
 
 
-__all__ = ["HealthConfig", "HealthSnapshot", "RECOVERABLE_KINDS",
-           "SimCheckpointer", "SimulationHealthError", "carry_counters",
-           "check_chunk", "concat_records", "health_stats_init",
-           "health_step_stats", "lane_snapshots", "run_chunked", "snapshot"]
+# --------------------------------------------------------------------------
+# Supervisor
+# --------------------------------------------------------------------------
+
+def run_resilient(run_fn: Callable[[Optional[int], Optional[CapacityConfig]],
+                                   Any],
+                  checkpoint_dir: Optional[str] = None,
+                  max_restarts: int = 3,
+                  capacity: Optional[CapacityConfig] = None,
+                  escalate=None, max_escalations: int = 4,
+                  backoff: Optional[BackoffPolicy] = BackoffPolicy(),
+                  sleep: Callable[[float], None] = time.sleep,
+                  rng=None):
+    """Supervise ``run_fn(resume_step, capacity)`` to completion; the
+    resume signal is ``latest_step(checkpoint_dir)`` (None when there is
+    no checkpoint yet).  Policy:
+
+    * **crash** (a ``RuntimeError`` that is not a health breach, e.g. the
+      ``faulty`` scheme's injected partition failure): restart from the
+      newest checkpoint, up to ``max_restarts`` times;
+    * **drop-rate breach** (:class:`SimulationHealthError` of kind
+      ``drop_rate``): ``escalate(error, capacity)`` (default:
+      :func:`repro_torch.core.capacity.escalate_capacity` of
+      ``capacity``) and resume from the last healthy checkpoint, up to
+      ``max_escalations`` times; a None capacity re-raises;
+    * **poison** (``nonfinite`` / ``saturated`` / ``rate_envelope``):
+      re-raise at once.
+
+    Every retry first waits ``backoff.delay(attempt, rng)`` through
+    ``sleep`` (``backoff=None``: no wait).  With a telemetry session
+    active each escalation and restart emits an ``escalation`` /
+    ``restart`` event carrying ``backoff_s``."""
+    from repro_torch.train.checkpoint import latest_step
+    if escalate is None:
+        def escalate(e, cap):
+            return escalate_capacity(cap)
+    tele = obs.active()
+    restarts = escalations = 0
+    resume: Optional[int] = None
+
+    def _latest():
+        return latest_step(checkpoint_dir) if checkpoint_dir else None
+
+    def _wait(attempt: int) -> float:
+        if backoff is None:
+            return 0.0
+        d = backoff.delay(attempt, rng)
+        if d > 0:
+            sleep(d)
+        return round(d, 6)
+
+    with obs.span("run_resilient"):
+        while True:
+            try:
+                return run_fn(resume, capacity)
+            except SimulationHealthError as e:
+                if e.kind not in RECOVERABLE_KINDS:
+                    raise
+                escalations += 1
+                if escalations > max_escalations:
+                    raise
+                capacity = escalate(e, capacity)
+                if capacity is None:
+                    raise
+                resume = _latest()
+                waited = _wait(escalations)
+                if tele is not None:
+                    tele.emit("escalation", attempt=escalations,
+                              resume_step=resume, kind=e.kind,
+                              backoff_s=waited)
+            except RuntimeError as e:
+                restarts += 1
+                if restarts > max_restarts:
+                    raise
+                resume = _latest()
+                waited = _wait(restarts)
+                if tele is not None:
+                    tele.emit("restart", attempt=restarts,
+                              resume_step=resume, error=type(e).__name__,
+                              backoff_s=waited)
+
+
+__all__ = ["BackoffPolicy", "HealthConfig", "HealthSnapshot",
+           "RECOVERABLE_KINDS", "SimCheckpointer", "SimulationHealthError",
+           "carry_counters", "check_chunk", "concat_records",
+           "health_stats_init", "health_step_stats", "lane_snapshots",
+           "run_chunked", "run_resilient", "snapshot"]

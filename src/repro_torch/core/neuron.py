@@ -26,6 +26,11 @@ Bit-exactness with the JAX reference rests on four details:
   :func:`ftz` after and before each operation; without it a quiet
   neuron's ``g`` differs once it decays below 1.18e-38 (about 4,300
   steps at dt = 0.1 ms).
+
+Every float32 -> int32 conversion goes through :func:`f32_to_i32`, which
+saturates as XLA's convert does (NaN -> 0); ``.to(torch.int32)`` maps
+NaN, the infinities and every value out of range to ``INT_MIN`` on the
+CPU.
 """
 
 from __future__ import annotations
@@ -262,14 +267,30 @@ def fx_to_mv(x: torch.Tensor, params: LIFParams) -> torch.Tensor:
     return (x.to(torch.float32) / f32(params.fx_one, x)) * f32s(params.w_scale)
 
 
+INT32_MAX = 2**31 - 1
+
+
+def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 with XLA's semantics: NaN -> 0, x >= 2**31 ->
+    INT32_MAX, x < -2**31 -> INT32_MIN, otherwise truncated toward zero
+    (callers round first, half to even).  The CUDA kernels'
+    ``__float2int_rn`` saturates the same way.  2**31 - 1 is no float32,
+    so the upper limit is compared at 2**31 and written explicitly."""
+    big = x >= 2.0**31
+    safe = torch.where(torch.isnan(x) | big, 0.0,
+                       torch.clamp(x, min=-2.0**31))
+    return torch.where(big, INT32_MAX, safe.to(torch.int32))
+
+
 def mv_to_fx(x: torch.Tensor, params: LIFParams) -> torch.Tensor:
     # XLA folds the reference's x / w_scale * fx_one into one multiply by
     # float32(fx_one) / float32(w_scale), rounded to float32; so does this
     scale = np.float32(params.fx_one) / np.float32(params.w_scale)
-    return torch.round(x * float(scale)).to(torch.int32)
+    return f32_to_i32(torch.round(x * float(scale)))
 
 
 __all__ = ["FLT_MIN", "FLYWIRE_LIF", "FLYWIRE_LIF_1MS", "FX_FRAC_BITS",
-           "LIFParams", "LIFState", "f32", "f32s", "fma_f32", "ftz", "fx_to_mv",
+           "INT32_MAX", "LIFParams", "LIFState", "f32", "f32_to_i32", "f32s",
+           "fma_f32", "ftz", "fx_to_mv",
            "init_state", "lif_step", "lif_step_fx", "mv_to_fx",
            "poisson_drive", "wrap_i32"]

@@ -67,14 +67,19 @@ class Exchanged(NamedTuple):
     kept: Any              # what the scheme keeps for its deliver
 
 
-def step_exchange(carry: SimCarry, *, scheme: ExchangeScheme, state, stim,
-                  cap, topo: Topology, partitionable: bool = True
+def step_exchange(carry: SimCarry, t: int, *, scheme: ExchangeScheme, state,
+                  stim, cap, topo: Topology, partitionable: bool = True
                   ) -> Exchanged:
-    """The half of a step before the collective."""
+    """The half of a step before the collective, at the absolute step
+    ``t``.  A scheme with the step-aware ``exchange_at`` (the ``faulty``
+    wrapper, which sabotages payloads at configured steps) is called
+    through it; the others keep the t-free ``exchange``."""
     from repro_torch.exp.stimulus import n_split
     keys = prng.split(carry.key, n_split(stim), partitionable=partitionable)
     delayed = carry.ring[carry.ptr]
-    sent, kept = scheme.exchange(state, delayed, cap, topo)
+    ex_at = getattr(scheme, "exchange_at", None)
+    sent, kept = (scheme.exchange(state, delayed, cap, topo) if ex_at is None
+                  else ex_at(state, delayed, cap, topo, t))
     return Exchanged(keys, delayed, sent, kept)
 
 
@@ -121,8 +126,8 @@ def sim_step(carry: SimCarry, t: int, *, scheme: ExchangeScheme, state, stim,
              voltage_rows=None) -> tuple[SimCarry, dict]:
     """One step of a single partition: both halves, the collective over
     the one partition in between."""
-    ex = step_exchange(carry, scheme=scheme, state=state, stim=stim, cap=cap,
-                       topo=topo, partitionable=partitionable)
+    ex = step_exchange(carry, t, scheme=scheme, state=state, stim=stim,
+                       cap=cap, topo=topo, partitionable=partitionable)
     return step_finish(carry, ex, all_gather([ex.sent]), t, scheme=scheme,
                        state=state, stim=stim, sim=sim, cap=cap, topo=topo,
                        probes=probes, partitionable=partitionable,

@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch import random as prng
-from repro_torch.core.neuron import (LIFParams, f32, f32s, ftz, lif_step,
-                                     lif_step_fx, poisson_drive)
+from repro_torch.core.neuron import (LIFParams, f32, f32_to_i32, f32s, ftz,
+                                     lif_step, lif_step_fx, poisson_drive)
 from repro_torch.tree import map_tensors
 
 
@@ -72,11 +72,11 @@ def apply_drive(lif, g_units: torch.Tensor, drive: StimDrive, p: LIFParams,
     if drive.g_units is not None:
         g_units = ftz(ftz(g_units) + ftz(drive.g_units))
     if fixed_point:
-        g_in = torch.round(g_units).to(torch.int32)
+        g_in = f32_to_i32(torch.round(g_units))
         v_fx = None
         if drive.v_mv is not None:
-            v_fx = torch.round(drive.v_mv / f32(p.w_scale, drive.v_mv)
-                               ).to(torch.int32)
+            v_fx = f32_to_i32(torch.round(drive.v_mv
+                                          / f32(p.w_scale, drive.v_mv)))
         return lif_step_fx(lif, g_in, p, v_fx, drive.force)
     return lif_step(lif, g_units, p, drive.v_mv, drive.force)
 

@@ -38,8 +38,8 @@ import os
 
 import torch
 
-from repro_torch.core.neuron import (LIFParams, LIFState, ftz, lif_step,
-                                     lif_step_fx)
+from repro_torch.core.neuron import (LIFParams, LIFState, f32_to_i32, ftz,
+                                     lif_step, lif_step_fx)
 from repro_torch.kernels import build
 from repro_torch.kernels.build import check_tensor as _check
 
@@ -140,7 +140,7 @@ def fused_deliver_lif_plain(blk_id, weights, spk_blocks, nspk, v, g, refrac,
     force = None if force is None else force.reshape(-1) != 0
     if fixed_point:
         st, spikes = lif_step_fx(
-            lif, torch.round(g_units).to(torch.int32).reshape(-1), params,
+            lif, f32_to_i32(torch.round(g_units)).reshape(-1), params,
             vin, force)
     else:
         st, spikes = lif_step(lif, g_units.reshape(-1), params, vin, force)

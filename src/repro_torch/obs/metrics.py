@@ -3,8 +3,8 @@
 Counterpart of ``repro/obs/metrics.py``.  One registry rides on each
 :class:`repro_torch.obs.Telemetry` session (ambient instrumentation), and
 components with always-on accounting (the serving engine's admission and
-batching counters) own a registry directly.  Everything is host-side
-Python; nothing here touches a device.
+batching counters, the simulation server's) own a registry directly.
+Everything is host-side Python; nothing here touches a device.
 """
 
 from __future__ import annotations
@@ -62,6 +62,10 @@ class MetricsRegistry:
                 out[f"{name}.total_s"] = round(o["total"], 6)
             return out
 
+    def observations(self) -> dict:
+        with self._lock:
+            return {k: dict(v) for k, v in self._observations.items()}
+
     def compile_snapshot(self) -> dict:
         """Hit/miss totals plus the per-signature records (attached to
         ``SimResult.stats`` / ``DistResult.stats`` when a telemetry
@@ -72,6 +76,11 @@ class MetricsRegistry:
                 "misses": int(self._counters.get("compile_cache.misses", 0)),
                 "signatures": [dict(r) for r in self._compiles],
             }
+
+    def snapshot(self) -> dict:
+        return {"counters": self.counters(),
+                "observations": self.observations(),
+                "compile_cache": self.compile_snapshot()}
 
 
 __all__ = ["MetricsRegistry"]

@@ -686,3 +686,113 @@ def test_chunked_resumed_opto_ramp_on_the_card(cuda, tmp_path):
         assert torch.equal(r.raster, want.raster)
         assert torch.equal(r.dropped, want.dropped)
         assert all(torch.equal(x, y) for x, y in zip(r.state, want.state))
+
+
+@pytest.mark.cuda
+def test_sim_server_packed_equals_solo_on_the_card(cuda):
+    """A SimServer on blocked_fused (Q19.12) packs four same-signature
+    requests into one batch: one fused kernel launch a step for the four
+    lanes, and each request bitwise its solo simulate() on the card and
+    the CPU server's result; a crash-once request is retried and
+    completes."""
+    from repro_torch.core.exchange import ExchangeFault
+    from repro_torch.core.health import BackoffPolicy
+    from repro_torch.serving import (COMPLETED, SimRequest, SimServeConfig,
+                                     SimServer)
+    c = synthetic_flywire(n=1500, target_synapses=45_000, seed=3)
+    cfg = SimConfig(engine="blocked_fused", fixed_point=True,
+                    quantize_bits=9, poisson_to_v=False)
+    T = 100
+    serve = SimServeConfig(max_batch=4, chunk_steps=25,
+                           backoff=BackoffPolicy(base_s=0.0, jitter=0.0))
+    fired = []
+
+    def hook(start, stop):
+        if start == 25 and not fired:
+            fired.append(start)
+            raise ExchangeFault("injected")
+
+    def workload():
+        reqs = [SimRequest(scenario="sugar_feeding", t_steps=T, seed=s,
+                           params={"background_hz": 20.0},
+                           probes=ProbeSpec(raster=True, pop_rate=True))
+                for s in range(4)]
+        reqs.append(SimRequest(scenario="step_response", t_steps=T, seed=9,
+                               fault_hook=hook))
+        return reqs
+
+    K.reset_launches()
+    srv = SimServer(c, cfg, serve, sleep=lambda s: None, device=cuda)
+    reqs = srv.run(workload())
+    torch.cuda.synchronize()
+    assert [r.status for r in reqs] == [COMPLETED] * 5
+    assert reqs[4].attempts == 1
+    # 4 lanes in one batch (T launches), the crasher: 25 steps before its
+    # hook fired at the second chunk, then T on its retry
+    assert K.LAUNCHES == {"spike_deliver": 0, "fused_deliver_lif": 2 * T + 25}
+    cpu = SimServer(c, cfg, serve, sleep=lambda s: None, device="cpu").run(
+        workload())
+    stim = build_scenario("sugar_feeding", c, srv.cfg, background_hz=20.0)
+    for r, w in zip(reqs, cpu):
+        assert torch.equal(r.result.counts.cpu(), w.result.counts)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(r.result.state,
+                                                            w.result.state))
+        for k, v in w.result.records.items():
+            assert torch.equal(r.result.records[k].cpu(), v), k
+    for r in reqs[:4]:
+        solo = simulate(c, srv.cfg, T, seed=r.seed, stimulus=stim,
+                        probes=r.probes, device=cuda)
+        assert torch.equal(solo.counts, r.result.counts)
+        assert torch.equal(solo.raster, r.result.raster)
+        assert all(torch.equal(x, y) for x, y in zip(solo.state,
+                                                     r.result.state))
+
+
+@pytest.mark.cuda
+def test_faulty_blocked_recovered_on_the_card(cuda, tmp_path):
+    """faulty(inner="blocked") with the fused kernel at P = 4: partition 1
+    fails at step 30, run_resilient restarts from the step-25
+    checkpoint, and the result is bitwise the clean unfused blocked run;
+    one fused launch per partition and step run."""
+    from repro_torch.core import (DistConfig, FaultSpec, build_dcsr,
+                                  configure_faulty, even_partition,
+                                  run_resilient, simulate_distributed)
+    c = synthetic_flywire(6000, seed=2)
+    d = build_dcsr(c, even_partition(c, 4), quantize_bits=9)
+    sim = SimConfig(engine="blocked_fused", quantize_bits=9,
+                    fixed_point=True, poisson_to_v=False)
+    stim = build_scenario("sugar_feeding", c, sim, background_hz=20.0)
+    T = 100
+
+    def run(scheme, engine, **kw):
+        return simulate_distributed(
+            d, DistConfig(sim=dataclasses.replace(sim, engine=engine),
+                          scheme=scheme), T, seed=1, stimulus=stim,
+            probes=ProbeSpec(raster=True), device=cuda, **kw)
+
+    clean = run("blocked", "csr")
+    assert int(clean.counts.sum()) > 0
+    configure_faulty(inner="blocked", spec=FaultSpec(partition=1,
+                                                     fail_at=(30,)))
+    td = str(tmp_path / "ck")
+    attempts = []
+
+    def attempt(resume, cap):
+        attempts.append(resume)
+        return run("faulty", "blocked_fused", chunk_steps=25,
+                   checkpoint_dir=td, resume=resume is not None)
+
+    K.reset_launches()
+    try:
+        got = run_resilient(attempt, checkpoint_dir=td, sleep=lambda s: None)
+    finally:
+        configure_faulty()
+    torch.cuda.synchronize()
+    assert attempts == [None, 25]
+    # 25 steps before the failure (raised before its chunk ran), the
+    # other T - 25 after the resume
+    assert K.LAUNCHES == {"spike_deliver": 0, "fused_deliver_lif": 4 * T}
+    assert torch.equal(got.counts, clean.counts)
+    assert torch.equal(got.raster, clean.raster)
+    assert got.dropped == clean.dropped
+    assert all(torch.equal(x, y) for x, y in zip(got.state, clean.state))

@@ -217,9 +217,16 @@ def test_unported_paths_raise(fused_net):
     # below 1 is refused as the reference refuses it
     with pytest.raises(ValueError, match="positive"):
         simulate_distributed(pd, cfg, 3, device="cpu", chunk_steps=-1)
-    with pytest.raises(NotImplementedError):
-        simulate_distributed(pd, DistConfig(sim=SimConfig(), scheme="faulty"),
-                             3, device="cpu")
+    # the faulty wrapper is ported (tests/test_torch_resilience.py): with
+    # a clean plan it is its inner scheme
+    from repro_torch.core.exchange import configure_faulty
+    configure_faulty(inner="event")
+    faulty = simulate_distributed(
+        pd, DistConfig(sim=SimConfig(), scheme="faulty"), 3, device="cpu")
+    clean = simulate_distributed(pd, cfg, 3, device="cpu")
+    assert torch.equal(faulty.counts, clean.counts)
+    assert faulty.dropped == clean.dropped
+    assert all(torch.equal(a, b) for a, b in zip(faulty.state, clean.state))
     with pytest.raises(ValueError):
         simulate_distributed(pd, DistConfig(sim=SimConfig(), scheme="local"),
                              3, device="cpu")

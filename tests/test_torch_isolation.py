@@ -50,6 +50,9 @@ def test_every_module_imports_with_jax_blocked():
                  "repro_torch.core.health",
                  "repro_torch.train.checkpoint",
                  "repro_torch.launch.simulate",
+                 "repro_torch.launch.serve",
+                 "repro_torch.serving.sim",
+                 "repro_torch.core.exchange.faulty",
                  "repro_torch.obs.events",
                  "repro_torch.obs.schema",
                  "repro_torch.obs.trace",
@@ -111,6 +114,12 @@ def test_simulate_without_device_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         from repro_torch.core import build_synapses
         build_synapses(c, SimConfig())
+    from repro_torch.launch import serve
+    from repro_torch.serving import SimServer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SimServer(c, SimConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--n", "200"])
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

@@ -209,9 +209,11 @@ def test_unported_features_raise(net):
         simulate(pc, SimConfig(engine="dense"), 5, device="cpu")
     with pytest.raises(ValueError):
         simulate(pc, SimConfig(engine="nope"), 5, device="cpu")
-    from repro_torch.core.exchange import get_scheme
-    with pytest.raises(NotImplementedError):
-        get_scheme("faulty")
+    from repro_torch.core.exchange import FaultyExchange, get_scheme
+    # the faulty wrapper is ported (tests/test_torch_resilience.py)
+    assert isinstance(get_scheme("faulty"), FaultyExchange)
+    with pytest.raises(ValueError, match="unknown exchange scheme"):
+        get_scheme("nope")
     with pytest.raises(ValueError, match="unknown scenario"):
         build_scenario("no-such-scenario", pc, cfg)
 
