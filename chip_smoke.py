@@ -27,6 +27,18 @@ kernel against its plain PyTorch version, then drives these paths:
   partition's kernel output held against its plain version; and
   ``run_dist_trials()`` of 3 seeds through the same four, bitwise equal
   to each other and (``bitmap``) to ``simulate_distributed()`` per seed;
+* the exact engines on the same network and stimulus, after the
+  monolithic store is freed: ``binned`` and ``ell`` at the uncapped width
+  (1,000 steps) and ``dense`` (200 steps, W [n, n] = 77.57 GB built on
+  the card) bitwise equal to ``csr``, ``ell`` at the default cap beside
+  it, ``run_trials`` of 10 seeds through ``binned`` and ``dense`` lane by
+  lane equal to ``simulate()``;
+* the multi-process path: the P = 12 partitioning as 12 processes on the
+  card (``torchrun``, ``gloo``), this script's ``--mp-worker`` mode being
+  one rank: each scheme bitwise equal to its emulated run, trials,
+  a killed and resumed chunked run, each rank's kernels held against
+  their plain versions on its own slab; and one ``nccl`` rank at P = 1
+  equal to ``simulate()``;
 * on the same network, every scenario of the catalog through
   ``blocked_fused`` against ``csr`` (``background_storm``, ~2% of the
   neurons spiking a step, profiled, both delivery kernels timed at its
@@ -38,7 +50,9 @@ kernel against its plain PyTorch version, then drives these paths:
   reported) and in process through ``main(argv)`` (a kill and resume
   with background checkpoint writes, the ``blocked`` engine, and the
   partitioned CLI at P = 12 unchunked and killed and resumed: one digest
-  each), with the delivery kernels' launches counted;
+  each; and the same P = 12 flags without ``--emulate`` under
+  ``torchrun``, 12 ranks, the same digest), with the delivery kernels'
+  launches counted;
 * simulation serving on the same network: a ``SimServer`` packing
   ``sugar_feeding`` and ``step_response`` requests four to a batch onto
   the lane axis (``blocked_fused``, and a shorter server on ``blocked``),
@@ -67,7 +81,8 @@ launch (the trials run's, and 0.1% and 1% per lane) beside the CSR
 product with the dense [n, 10] spike matrix.  Every phase raises on
 failure; nothing is caught.  The last lines are a JSON line of the
 supervision and scenario numbers, a JSON line of the serving and
-resilience numbers, a JSON line of those activity cases
+resilience numbers, a JSON line of the exact engines' and the 12-rank
+path's numbers, a JSON line of those activity cases
 (``background_storm``'s spikes among them), a JSON line of kernel
 measurements, the card's name and power limit, and ``{"ok": true,
 "device": ...}``.
@@ -97,9 +112,10 @@ T_OTHER = 200
 T_LIF = 1_000
 P_DIST = 12                     # the paper's chip count, emulated on one card
 T_DIST = 200
-T_DIST_F32 = 50
+T_DIST_F32 = 25
 T_DIST_TRACE = 10
-T_TRIALS = 1_000
+T_TRIALS = 300                  # depths cut to keep the whole run near
+                                # 780 s (PERF.md section 4)
 TRIAL_SEEDS = 10                # the reference's default: the paper's trials
 T_TRIALS_TRACE = 20
 # run_trials engines; "event" is CONFIG.sim as it is
@@ -113,18 +129,26 @@ DIST_RUNS = {"bitmap": ("bitmap", None), "event": ("event", None),
              "blocked": ("blocked", None),
              "blocked_fused": ("blocked", "blocked_fused")}
 ACTIVITY = (0.001, 0.01, 1.0)   # fractions of the neurons spiking a step
-T_SUPERVISE = 1000              # chunked / telemetry / checkpoint runs
+T_EXACT = 1_000                 # binned and uncapped ell against csr
+T_EXACT_SHORT = 200             # ell at the default cap, and dense
+T_EXACT_TRIALS = 100            # run_trials through binned and dense
+EXACT_TRIAL_SEEDS = 10
+T_EXACT_TRACE = 20              # profiled steps of each exact engine
+MP_CHUNK = 50                   # the 12-rank chunked run, killed after 2
+T_MP_NCCL = 200                 # one nccl rank, P = 1, step_response
+MP_TIMEOUT = 600                # seconds for a torchrun of 12 ranks
+T_SUPERVISE = 500               # chunked / telemetry / checkpoint runs
 SUPERVISE_CHUNK = 125
-SUPERVISE_REPS = 3              # one chunk and chunked, alternated
+SUPERVISE_REPS = 2              # one chunk and chunked, alternated
 T_SUPERVISE_TRACE = 100         # profiled in one chunk and in chunks of
 SUPERVISE_TRACE_CHUNK = 25      # this many steps
 T_SCENARIO = 200                # each of the seven scenarios
 T_STORM_TRACE = 20
 CLI_SCALE = "full"              # the CLI's --scale: full FlyWire
-CLI_T_MS = 100.0                # the CLI's full-size run: 1,000 steps
-CLI_CHUNK = 250
-CLI_DIST_T_MS = 10.0            # the partitioned CLI: 100 steps at P = 12
-CLI_DIST_CHUNK = 25
+CLI_T_MS = 50.0                 # the CLI's full-size run: 500 steps
+CLI_CHUNK = 125
+CLI_DIST_T_MS = 5.0             # the partitioned CLI: 50 steps at P = 12
+CLI_DIST_CHUNK = 20
 T_SERVE = 300                   # the server's requests (sugar / step mix)
 SERVE_CHUNK = 50
 SERVE_BATCH = 4
@@ -1087,7 +1111,8 @@ def phase_trials_yardstick(c, cfg, syn, trials, smi):
                 lib_ms = cuda_ms(lambda: A @ S, 5, warmup=1)
             del a, b
             ms, how = timed(fn, f"{name}_kernel")
-            plain_ms = cuda_ms(plain, 2, warmup=1)
+            # one call (~1.65 s at B = 10) after the checked one
+            plain_ms = cuda_ms(plain, 1, warmup=0)
             cols, union, per_lane = lane_bytes(syn.blk_id, syn.n_sb, refs,
                                                spk, nspk, state_bytes)
             bound = union / HBM_BYTES_PER_S * 1e3
@@ -2016,7 +2041,8 @@ def dist_trials(d, cfg, stim, state, smi):
     launches = {"spike_deliver": runs["blocked"][2]["spike_deliver"],
                 "fused_deliver_lif": runs["blocked_fused"][2][
                     "fused_deliver_lif"]}
-    return {"ms": ms, "launches": launches, "max_abs_err": err}
+    return {"ms": ms, "launches": launches, "max_abs_err": err,
+            "lanes": lane_digests(base)}
 
 
 def dist_resilience(c, d, cfg, stim, clean, ms_clean, smi):
@@ -2186,10 +2212,13 @@ def phase_distributed(c, stim, smi):
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(peak < 80.0, f"peak device memory {peak:.3f} GB")
     ms = {label: r[1] for label, r in runs.items()}
+    emulated = {"digests": {label: result_digest(r[0])
+                            for label, r in runs.items()}}
     yard = sharded_kernels(d, state, base, cfg, smi)
     clean, ms_clean, _ = runs["blocked"]
     del runs, bl, bf
     trials = dist_trials(d, cfg, stim, state, smi)
+    emulated["trial_lanes"] = trials.pop("lanes")
     resilient = dist_resilience(c, d, cfg, stim, clean, ms_clean, smi)
     del clean
 
@@ -2219,10 +2248,17 @@ def phase_distributed(c, stim, smi):
           f"blocked_fused == bitmap in float32; {int(base.counts.sum())} "
           f"spikes in {T_DIST} steps; launches {launches}; peak device "
           f"memory {peak:.3f} GB; card {smi}", flush=True)
+    # the partitioning and stimulus for phase_multiprocess's ranks
+    emulated["data"] = os.path.join(work_dir("multiprocess"), "data.pt")
+    t0 = time.perf_counter()
+    torch.save({"d": d, "stim": stim, "cfg": cfg}, emulated["data"])
+    print(f"saved the P = {P_DIST} DCSR and stimulus for the ranks in "
+          f"{time.perf_counter() - t0:.3f} s "
+          f"({os.path.getsize(emulated['data']) / 1e6:.1f} MB)", flush=True)
     del a, b, base, state, d, greedy
     gc.collect()
     torch.cuda.empty_cache()
-    return yard, launches, ms, trials, resilient
+    return yard, launches, ms, trials, resilient, emulated
 
 
 WORK_DIR = os.path.join("build", "chip_smoke")   # under the checkout
@@ -2597,13 +2633,26 @@ def phase_cli(smi):
     check(dict(K.LAUNCHES) == {"fused_deliver_lif": 2 * P_DIST * d_steps,
                                "spike_deliver": 0},
           f"partitioned CLI launches {K.LAUNCHES}")
+    # the same flags without --emulate: one process a partition under
+    # torchrun, gloo (12 ranks on one card), only rank 0 printing
+    torch.cuda.empty_cache()
+    out, secs_torchrun = torchrun(P_DIST, [
+        "-m", "repro_torch.launch.simulate",
+        *[a for a in dist if a != "--emulate"], "--dist-backend", "gloo",
+        "--device", DEVICE])
+    check(cli_lines(out) == one, f"the torchrun CLI's P = {P_DIST} digest "
+          f"!= the emulated CLI's")
+    check(out.count("[simulate] connectome:") == 1,
+          "more than one rank printed")
     print(f"CLI: digest {whole['digest'][:16]} for the whole, resumed "
           f"(program and in process, background writes), csr and blocked "
           f"runs; P = {P_DIST} digest {one['digest'][:16]} unchunked and "
           f"resumed; launches {json.dumps(launches)}; whole run "
           f"{secs_whole:.3f} s, resume {secs_resume:.3f} s, P = {P_DIST} "
-          f"{secs_dist:.3f} s (set-up included); card {smi}", flush=True)
-    return launches
+          f"{secs_dist:.3f} s (set-up included), P = {P_DIST} under torchrun "
+          f"(12 processes, gloo, the same digest) {secs_torchrun:.3f} s; "
+          f"card {smi}", flush=True)
+    return launches, secs_torchrun
 
 
 @phase("the serving CLI on full FlyWire (python -m repro_torch.launch.serve)")
@@ -2654,6 +2703,513 @@ def phase_serve_cli(smi):
     return secs
 
 
+def small_result(res):
+    """Counts, dropped and LIF state of a run: what the exact engines are
+    held to."""
+    return (res.counts, res.dropped, tuple(res.state))
+
+
+def same_small(a, b) -> bool:
+    import torch
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and equal_all(a[2], b[2]))
+
+
+@phase("exact engines at full FlyWire: binned, ell, dense (Q19.12)")
+def phase_exact_engines(c, cfg, stim, want, smi):
+    """The reference's exact engines on the main path's network, stimulus
+    and seed, after the monolithic store is freed: ``binned`` and ``ell``
+    at the uncapped width (every row whole, so every sum an integer) for
+    T_EXACT steps, bitwise equal to the main path's ``csr`` run ``want``
+    in counts, LIF state and ``dropped``; ``ell`` at the default cap for
+    T_EXACT_SHORT steps, its spike-count difference to ``csr`` printed
+    (it samples the rows over the cap); ``dense`` (77.57 GB, built on the
+    card) for T_EXACT_SHORT steps, bitwise equal to ``csr``, beside its
+    byte bound; and ``run_trials`` of EXACT_TRIAL_SEEDS seeds through
+    ``binned`` and ``dense``, each lane bitwise equal to the ``csr``
+    ``simulate()`` of its seed.  For each engine: ms/step, device busy ms
+    a step over T_EXACT_TRACE profiled steps, build seconds, peak GB."""
+    import gc
+
+    import torch
+    from repro_torch.core import build_synapses, simulate
+    from repro_torch.core.compress import effective_fan_in_sar
+    from repro_torch.exp import ProbeSpec, run_trials
+    probes = ProbeSpec()
+    seeds = tuple(range(EXACT_TRIAL_SEEDS))
+    numbers = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def timed_run(run_cfg, t_steps, syn, label, seed=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulate(c, run_cfg, t_steps, seed=seed, syn=syn,
+                       stimulus=stim, probes=probes)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / t_steps
+        print(f"{label}: {ms:.4f} ms/step over {t_steps} steps, "
+              f"{int(res.counts.sum())} spikes, dropped {int(res.dropped)}",
+              flush=True)
+        return res, ms
+
+    def built(run_cfg):
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        syn = build_synapses(c, run_cfg)
+        torch.cuda.synchronize()
+        return syn, time.perf_counter() - t0
+
+    def traced(run_cfg, syn, label):
+        wall, kernels = device_profile(lambda: simulate(
+            c, run_cfg, T_EXACT_TRACE, seed=1, syn=syn, stimulus=stim,
+            probes=probes))
+        per_step = None if kernels is None else {
+            k: (ms / T_EXACT_TRACE, n / T_EXACT_TRACE)
+            for k, (ms, n) in kernels.items()}
+        print_breakdown(f"{label} trace over {T_EXACT_TRACE} steps, per "
+                        f"step", wall / T_EXACT_TRACE, per_step, top=4)
+        return (None if per_step is None
+                else sum(ms for ms, _ in per_step.values()))
+
+    def trials_case(run_cfg, syn, label):
+        t0 = time.perf_counter()
+        res = run_trials(c, run_cfg, T_EXACT_TRIALS, seeds=seeds, syn=syn,
+                         stimulus=stim, probes=probes)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / T_EXACT_TRIALS
+        for b in seeds:
+            lane = (res.counts[b], res.dropped[b],
+                    tuple(x[b] for x in res.state))
+            check(same_small(lane, lanes[b]), f"run_trials {label} lane {b} "
+                  f"!= csr simulate(seed={b})")
+        print(f"run_trials {label}: {ms:.4f} ms/step over {T_EXACT_TRIALS} "
+              f"steps of {len(seeds)} lanes, each lane bitwise equal to "
+              f"the csr simulate() of its seed", flush=True)
+        return ms
+
+    def report(name, ms, busy, build_s, **extra):
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        numbers[name] = {"ms_per_step": ms, "busy_ms_per_step": busy,
+                         "build_s": build_s, "peak_gb": peak, **extra}
+        busy_s = "not measured" if busy is None else f"{busy:.4f} ms a step"
+        print(f"{name}: {ms:.4f} ms/step, device busy {busy_s}, build "
+              f"{build_s:.3f} s, peak {peak:.3f} GB; card {smi}", flush=True)
+
+    # the csr yardsticks: T_EXACT_SHORT steps, and each trial seed alone
+    csr_cfg = dataclasses.replace(cfg, engine="csr")
+    syn, _ = built(csr_cfg)
+    short, _ = timed_run(csr_cfg, T_EXACT_SHORT, syn, "csr Q19.12")
+    short = small_result(short)
+    lanes = [small_result(simulate(c, csr_cfg, T_EXACT_TRIALS, seed=s,
+                                   syn=syn, stimulus=stim, probes=probes))
+             for s in seeds]
+    del syn
+
+    b_cfg = dataclasses.replace(cfg, engine="binned")
+    syn, build_s = built(b_cfg)
+    bin_gb = syn.bin_w.numel() * 4 / 1e9
+    res, ms = timed_run(b_cfg, T_EXACT, syn, "binned Q19.12")
+    check(same_small(small_result(res), want), "binned != csr at full size")
+    busy = traced(b_cfg, syn, "binned")
+    trials_ms = trials_case(b_cfg, syn, "binned")
+    eff16 = int(effective_fan_in_sar(c, 16).max())
+    report("binned", ms, busy, build_s, n_bins=syn.n_bins,
+           bin_w_gb=bin_gb, trials_b10_ms_per_step=trials_ms,
+           n_bins_16bit=-(-eff16 // 8) * 8,
+           bin_w_16bit_gb=c.n * (-(-eff16 // 8) * 8) * 4 / 1e9)
+    print(f"binned: n_bins {syn.n_bins} at 9 bits (bin_w {bin_gb:.3f} GB); "
+          f"raw 16-bit weights would give n_bins "
+          f"{numbers['binned']['n_bins_16bit']} (bin_w "
+          f"{numbers['binned']['bin_w_16bit_gb']:.3f} GB)", flush=True)
+    del syn, res
+
+    width = int(c.fan_in.max())
+    e_cfg = dataclasses.replace(cfg, engine="ell", ell_width_cap=width)
+    syn, build_s = built(e_cfg)
+    ell_gb = (syn.idx.numel() * 4 + syn.w.numel() * 4) / 1e9
+    check(syn.n_capped == 0, f"{syn.n_capped} rows capped at the full width")
+    res, ms = timed_run(e_cfg, T_EXACT, syn, f"ell (width "
+                        f"{syn.idx.shape[1]}, uncapped) Q19.12")
+    check(same_small(small_result(res), want),
+          "uncapped ell != csr at full size")
+    busy = traced(e_cfg, syn, "ell uncapped")
+    report("ell_uncapped", ms, busy, build_s, width=int(syn.idx.shape[1]),
+           state_gb=ell_gb)
+    del syn, res
+
+    cap_cfg = dataclasses.replace(cfg, engine="ell")
+    syn, build_s = built(cap_cfg)
+    res, ms = timed_run(cap_cfg, T_EXACT_SHORT, syn,
+                        f"ell (width {syn.idx.shape[1]}, "
+                        f"{syn.n_capped} rows capped) Q19.12")
+    diff = (res.counts.long() - short[0].long())
+    busy = traced(cap_cfg, syn, "ell capped")
+    report("ell_capped", ms, busy, build_s, width=int(syn.idx.shape[1]),
+           n_capped=syn.n_capped, spikes=int(res.counts.sum()),
+           csr_spikes=int(short[0].sum()),
+           neurons_differing=int((diff != 0).sum()),
+           abs_count_diff=int(diff.abs().sum()))
+    print(f"ell at the default cap ({syn.n_capped} rows sampled): "
+          f"{int(res.counts.sum())} spikes against csr's "
+          f"{int(short[0].sum())}; {int((diff != 0).sum())} neurons differ, "
+          f"sum |count difference| {int(diff.abs().sum())} (it samples: "
+          f"not held to csr)", flush=True)
+    del syn, res, diff
+
+    d_cfg = dataclasses.replace(cfg, engine="dense")
+    free()
+    left = torch.cuda.memory_allocated() / 1e9
+    syn, build_s = built(d_cfg)
+    res, ms = timed_run(d_cfg, T_EXACT_SHORT, syn, "dense Q19.12")
+    check(same_small(small_result(res), short), "dense != csr at full size")
+    busy = traced(d_cfg, syn, "dense")
+    trials_ms = trials_case(d_cfg, syn, "dense")
+    bound = c.n * c.n * 4 / HBM_BYTES_PER_S * 1e3
+    report("dense", ms, busy, build_s, bound_ms_per_step=bound,
+           trials_b10_ms_per_step=trials_ms, held_before_gb=left)
+    print(f"dense: W [{c.n}, {c.n}] float32 {c.n * c.n * 4 / 1e9:.2f} GB "
+          f"built on the card in {build_s:.3f} s ({left:.3f} GB held "
+          f"before); {ms:.4f} ms/step against its {bound:.2f} ms bound "
+          f"(W read once a step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+          f"card {smi}", flush=True)
+    del syn, res
+    free()
+    return numbers
+
+
+def result_digest(res) -> str:
+    """sha256 over a run's counts, dropped, LIF state and raster (the
+    bytes the emulated and multi-process runs must share)."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for x in (res.counts.long(), torch.tensor(int(res.dropped)), *res.state,
+              res.raster if res.raster is not None else torch.zeros(0)):
+        h.update(x.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def lane_digests(res) -> list:
+    """result_digest of every lane of a DistTrialResult."""
+    from types import SimpleNamespace
+    return [result_digest(SimpleNamespace(
+        counts=res.counts[b], dropped=res.dropped[b],
+        state=tuple(x[b] for x in res.state),
+        raster=res.records["raster"][b])) for b in range(len(res.seeds))]
+
+
+def run_group(cmd, env, timeout: int):
+    """Run ``cmd`` in its own process group and wait; on the time limit
+    kill the whole group (torchrun and its ranks) and raise."""
+    import signal
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{' '.join(cmd[:6])} ... ran past {timeout} s")
+    return proc.returncode, out, err
+
+
+def torchrun(nproc: int, args, timeout: int = MP_TIMEOUT):
+    """``python -m torch.distributed.run --standalone`` of ``nproc``
+    ranks (a free localhost port, one intra-op thread a rank); raises
+    with the output's tail unless every rank exits 0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(here, "src"),
+           "OMP_NUM_THREADS": "1"}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), *args]
+    t0 = time.perf_counter()
+    code, out, err = run_group(cmd, env, timeout)
+    secs = time.perf_counter() - t0
+    print(f"$ torchrun --nproc-per-node {nproc} {' '.join(args)}: exit "
+          f"{code}, {secs:.3f} s", flush=True)
+    if code != 0:
+        raise RuntimeError(f"torchrun failed:\n{out[-3000:]}\n{err[-5000:]}")
+    return out, secs
+
+
+def mp_worker(spec_path: str) -> int:
+    """One rank of phase_multiprocess (``chip_smoke.py --mp-worker
+    SPEC``, under torchrun): partition ``RANK`` of the saved P = 12 DCSR
+    on a gloo mesh, through each of DIST_RUNS for T_DIST steps (launches
+    counted from 0 just before each run), ``run_dist_trials`` of
+    DIST_TRIAL_SEEDS seeds, a chunked run killed after two chunks and
+    resumed, then both kernels on the rank's own slab held against their
+    plain versions (one rank at a time: the plain versions' temporaries
+    would not fit twelve at once).  Writes ``rank<r>.json``."""
+    import torch
+    from repro_torch.core import DistConfig, simulate_distributed
+    from repro_torch.core.distributed import make_core_mesh
+    from repro_torch.core.exchange import get_scheme
+    from repro_torch.exp import ProbeSpec, run_dist_trials
+    from repro_torch.kernels.spike_prop import kernel as K
+    from repro_torch.kernels.spike_prop.ops import pad_spike_blocks
+    t_start = time.perf_counter()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    P_ = spec["P"]
+    dev = spec["device"]
+    mesh = make_core_mesh(P_, None if dev == "cuda" else [dev] * P_,
+                          backend="gloo")
+    blob = torch.load(spec["data"], weights_only=False)
+    d, stim, cfg = blob["d"], blob["stim"], blob["cfg"]
+    probes = ProbeSpec(raster=True)
+    out = {"rank": mesh.rank, "device": str(mesh.device), "runs": {},
+           "launches": {}}
+
+    def launches_sum():
+        mine = torch.tensor([K.LAUNCHES["spike_deliver"],
+                             K.LAUNCHES["fused_deliver_lif"]],
+                            device=mesh.device)
+        tot = mesh.all_reduce_sum(mine).tolist()
+        return {"spike_deliver": tot[0], "fused_deliver_lif": tot[1]}
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        mesh.barrier()
+
+    out["setup_load_s"] = time.perf_counter() - t_start
+    results = {}
+    for label, (scheme, engine) in DIST_RUNS.items():
+        sim = cfg if engine is None else dataclasses.replace(cfg,
+                                                             engine=engine)
+        dcfg = DistConfig(sim=sim, scheme=scheme)
+        sync()
+        t0 = time.perf_counter()
+        get_scheme(scheme).build(d, sim, dcfg.capacity, mesh.device,
+                                 parts=[mesh.rank])
+        sync()
+        build_s = time.perf_counter() - t0
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = simulate_distributed(d, dcfg, spec["T"], seed=0,
+                                   stimulus=stim, probes=probes, mesh=mesh)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / spec["T"]
+        out["launches"][label] = launches_sum()
+        results[label] = res
+        out["runs"][label] = {"digest": result_digest(res), "ms": ms,
+                              "build_s": build_s,
+                              "spikes": int(res.counts.sum()),
+                              "dropped": int(res.dropped),
+                              "stats": {k: int(v) for k, v in
+                                        res.stats.items()}}
+    trials = run_dist_trials(d, DistConfig(sim=cfg, scheme="bitmap"),
+                             spec["T_trials"], seeds=spec["seeds"],
+                             stimulus=stim, probes=probes, mesh=mesh)
+    out["trial_lanes"] = lane_digests(trials)
+    fused = DistConfig(sim=dataclasses.replace(cfg, engine="blocked_fused"),
+                       scheme="blocked")
+    ck = os.path.join(spec["work"], "ck")
+    kw = dict(seed=0, stimulus=stim, probes=probes, mesh=mesh,
+              chunk_steps=spec["chunk"], checkpoint_dir=ck)
+    simulate_distributed(d, fused, 2 * spec["chunk"], **kw)
+    out["checkpoints_after_kill"] = sorted(os.listdir(ck))
+    res = simulate_distributed(d, fused, spec["T"], resume=True, **kw)
+    out["resumed_digest"] = result_digest(res)
+
+    # both kernels on this rank's slab, at the gathered spikes of the
+    # bitmap run's busiest step; the fused one on this partition's final
+    # state; one rank at a time
+    base = results["bitmap"]
+    state = get_scheme("blocked").build(d, cfg, DistConfig(sim=cfg).capacity,
+                                        mesh.device, parts=[mesh.rank])
+    U, n_sb = d.part_size, state.n_sb
+    n_glob = d.n_parts * U
+    perm = torch.from_numpy(d.perm).to(mesh.device)
+    t = int(base.raster.sum(dim=1).argmax())
+    glob = torch.zeros(n_glob, dtype=torch.bool, device=mesh.device)
+    glob[perm] = base.raster[t]
+    spk, nspk = pad_spike_blocks(glob, n_glob, n_sb)
+    n_tb = state.blk_id.shape[1]
+    lo = mesh.rank * U
+
+    def rows(x):
+        full = torch.zeros(n_glob, dtype=x.dtype, device=mesh.device)
+        full[perm] = x
+        return torch.nn.functional.pad(full[lo:lo + U],
+                                       (0, n_tb * 128 - U)).reshape(-1, 128)
+    lif = [rows(x) for x in results["blocked_fused"].state]
+    store = (state.blk_id[0], state.weights[0], spk, nspk)
+    kw = dict(params=cfg.params, fixed_point=cfg.fixed_point)
+    for r in range(P_):
+        if r == mesh.rank:
+            a, b = K.spike_deliver_tiles(*store), K.spike_deliver_plain(
+                *store)
+            fa = K.fused_deliver_lif(*store, *lif, **kw)
+            fb = K.fused_deliver_lif_plain(*store, *lif, **kw)
+            out["kernel_equal"] = {
+                "spike_deliver": bool(torch.equal(a, b)),
+                "fused_deliver_lif": equal_all(fa, fb)}
+            out["max_abs_err"] = {
+                "spike_deliver": max_abs_err(a, b),
+                "fused_deliver_lif": max(max_abs_err(x, y)
+                                         for x, y in zip(fa, fb))}
+            out["live_tiles"] = int(((nspk[:n_sb] > 0).long() * torch.bincount(
+                state.blk_id[0].reshape(-1).long(),
+                minlength=n_sb + 1)[:n_sb]).sum())
+            del a, b, fa, fb
+            if mesh.device.type == "cuda":
+                torch.cuda.empty_cache()
+        sync()
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(mesh.device) / 1e9
+                      if mesh.device.type == "cuda" else 0.0)
+    out["total_s"] = time.perf_counter() - t_start
+    with open(os.path.join(spec["work"], f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+@phase("12 ranks on the card: the multi-process partitioned path (gloo)")
+def phase_multiprocess(c, cfg, emulated, smi):
+    """The P = 12 partitioning of phase_distributed as 12 processes on the
+    card (``torchrun``, gloo: NCCL refuses two ranks on one device), each
+    rank its own partition: DIST_RUNS for T_DIST steps, each bitwise equal
+    (digest of counts, dropped, state and raster) to the emulated run of
+    the same scheme, on every rank; ``run_dist_trials`` of
+    DIST_TRIAL_SEEDS seeds equal lane by lane to the emulated trials; a
+    chunked run (K = MP_CHUNK) killed after its second chunk and resumed
+    from the checkpoints the ranks wrote in the emulated layout, equal to
+    the whole run; every rank's kernels on its slab equal to their plain
+    versions; the kernels launched once per rank and step.  Then one rank
+    under ``nccl`` at P = 1 (in this process), equal to ``simulate()`` on
+    a deterministic drive (``step_response``: at P = 1 the partition's
+    key is split from the seed, the run's is the seed, so a Poisson drive
+    would differ)."""
+    import gc
+
+    import torch
+    data = emulated["data"]
+    work = os.path.dirname(data)
+    spec = {"P": P_DIST, "T": T_DIST, "T_trials": T_DIST_TRIALS,
+            "seeds": list(range(DIST_TRIAL_SEEDS)), "chunk": MP_CHUNK,
+            "data": data, "work": work, "device": DEVICE}
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, secs = torchrun(P_DIST, ["chip_smoke.py", "--mp-worker", spec_path])
+    ranks = []
+    for r in range(P_DIST):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r, out in enumerate(ranks):
+        check(out["rank"] == r, f"rank file {r} holds rank {out['rank']}")
+        for label, run in out["runs"].items():
+            check(run["digest"] == emulated["digests"][label],
+                  f"rank {r}: {label} at P = {P_DIST} over processes != "
+                  f"the emulated run")
+        check(out["trial_lanes"] == emulated["trial_lanes"],
+              f"rank {r}: run_dist_trials lanes != the emulated trials")
+        check(out["resumed_digest"] == emulated["digests"]["blocked_fused"],
+              f"rank {r}: the resumed chunked run != the whole run")
+        check(out["checkpoints_after_kill"] == sorted(
+            [f"step_{MP_CHUNK}", f"step_{MP_CHUNK * 2}"]),
+            f"rank {r}: checkpoints {out['checkpoints_after_kill']}")
+        check(all(out["kernel_equal"].values()),
+              f"rank {r}: a kernel != its plain version on its slab "
+              f"{out['kernel_equal']}")
+    launches = ranks[0]["launches"]
+    want = P_DIST * T_DIST
+    check(launches["blocked"] == {"spike_deliver": want,
+                                  "fused_deliver_lif": 0}
+          and launches["blocked_fused"] == {"spike_deliver": 0,
+                                            "fused_deliver_lif": want},
+          f"12-rank launches {launches}, expected {want} of each kernel in "
+          f"its own run")
+    ms = {label: max(o["runs"][label]["ms"] for o in ranks)
+          for label in DIST_RUNS}
+    build = {label: max(o["runs"][label]["build_s"] for o in ranks)
+             for label in DIST_RUNS}
+    peak = [round(o["peak_gb"], 3) for o in ranks]
+    err = {k: max(o["max_abs_err"][k] for o in ranks)
+           for k in ("spike_deliver", "fused_deliver_lif")}
+    print(f"12 ranks (gloo, one card): ms/step "
+          f"{json.dumps({k: round(v, 4) for k, v in ms.items()})}, the "
+          f"four bitwise equal to the emulated runs on every rank, trials "
+          f"and the resumed run too; set-up: load "
+          f"{max(o['setup_load_s'] for o in ranks):.3f} s, scheme builds "
+          f"{json.dumps({k: round(v, 3) for k, v in build.items()})} s; "
+          f"peak GB per rank {peak}; live tiles per slab "
+          f"{[o['live_tiles'] for o in ranks]}; torchrun {secs:.3f} s; "
+          f"card {smi}", flush=True)
+    nccl = nccl_single_rank(c, cfg, smi)
+    return {"ms_per_step": ms, "build_s": build, "peak_gb": peak,
+            "torchrun_s": secs, "max_abs_err": err,
+            "launches": {"spike_deliver": launches["blocked"][
+                "spike_deliver"], "fused_deliver_lif": launches[
+                "blocked_fused"]["fused_deliver_lif"]}, "nccl_p1": nccl}
+
+
+def nccl_single_rank(c, cfg, smi, backend: str = "nccl"):
+    """One rank in this process under nccl (world size 1, a file://
+    rendezvous): the P = 1 partitioning through ``bitmap`` for T_MP_NCCL
+    steps of ``step_response`` (deterministic), equal to ``simulate()``
+    with ``csr``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import (DistConfig, build_dcsr, build_synapses,
+                                  even_partition, simulate,
+                                  simulate_distributed)
+    from repro_torch.core.distributed import make_core_mesh
+    from repro_torch.core.exchange import get_scheme
+    from repro_torch.exp import ProbeSpec, build_scenario
+    csr = dataclasses.replace(cfg, engine="csr")
+    stim = build_scenario("step_response", c, csr)
+    probes = ProbeSpec(raster=True)
+    t0 = time.perf_counter()
+    d1 = build_dcsr(c, even_partition(c, 1), quantize_bits=cfg.quantize_bits)
+    t_dcsr = time.perf_counter() - t0
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(work_dir("nccl"),
+                                                      "init"),
+        rank=0, world_size=1)
+    try:
+        mesh = make_core_mesh(1, None if DEVICE == "cuda" else [DEVICE],
+                              backend=backend)
+        dcfg = DistConfig(sim=csr, scheme="bitmap")
+        # the rank's arrays are built (and memoized) outside the timing
+        get_scheme("bitmap").build(d1, csr, dcfg.capacity, mesh.device,
+                                   parts=[0])
+        t0 = time.perf_counter()
+        res = simulate_distributed(d1, dcfg, T_MP_NCCL, seed=0,
+                                   stimulus=stim, probes=probes, mesh=mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / T_MP_NCCL
+    finally:
+        dist.destroy_process_group()
+    syn = build_synapses(c, csr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = simulate(c, csr, T_MP_NCCL, seed=0, syn=syn, stimulus=stim,
+                   probes=probes)
+    torch.cuda.synchronize()
+    ms_one = (time.perf_counter() - t0) * 1e3 / T_MP_NCCL
+    check(int(one.counts.sum()) > 0, "step_response never spiked")
+    check(result_digest(res) == result_digest(one),
+          "nccl P = 1 != simulate()")
+    print(f"nccl, one rank, P = 1: {ms:.4f} ms/step over {T_MP_NCCL} steps "
+          f"of step_response ({int(res.counts.sum())} spikes), equal to "
+          f"simulate() (csr, {ms_one:.4f} ms/step); DCSR {t_dcsr:.3f} s; "
+          f"card {smi}", flush=True)
+    return {"ms_per_step": ms, "simulate_ms_per_step": ms_one,
+            "spikes": int(res.counts.sum())}
+
+
 def flywire_section(smi):
     """The simulate() phases at full FlyWire size, then the P = 12
     simulate_distributed() phase; returns the kernel numbers of the two
@@ -2675,6 +3231,7 @@ def flywire_section(smi):
                           rate_hz=CONFIG.sugar_rate_hz)
     syn, fused, ref, ms_fused, ms_csr, main_launches = phase_main(c, cfg, stim)
     ms_event = phase_event_config(c, stim, ref)
+    want = small_result(ref)
     del ref
     phase_trace(c, cfg, stim, syn)
     other_launches = phase_other(c, cfg, stim, syn)
@@ -2698,8 +3255,13 @@ def flywire_section(smi):
     left = torch.cuda.memory_allocated() / 1e9
     check(left < 1.0, f"{left:.3f} GB still allocated after the monolithic "
           f"FlyWire phases")
-    sharded, sharded_launches, ms_dist, dist_trials_out, resilient = (
-        phase_distributed(c, stim, smi))
+    exact = phase_exact_engines(c, cfg, stim, want, smi)
+    del want
+    (sharded, sharded_launches, ms_dist, dist_trials_out, resilient,
+     emulated) = phase_distributed(c, stim, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    multiprocess = phase_multiprocess(c, CONFIG.sim, emulated, smi)
     del stim, c
     gc.collect()
     torch.cuda.empty_cache()
@@ -2713,7 +3275,8 @@ def flywire_section(smi):
     extra = {"supervision": supervision, "scenarios": scenarios,
              "background_storm_busy_ms_per_step": storm_busy,
              "scenario_launches": scenario_launches, "serving": serving,
-             "resilient_p12": resilient}
+             "resilient_p12": resilient, "exact_engines": exact,
+             "multiprocess_p12": multiprocess}
     return (yard, activity, launches, sharded, sharded_launches, lanes,
             dist_trials_out, extra)
 
@@ -2726,6 +3289,9 @@ def main() -> int:
         raise SystemExit("chip_smoke.py: no src/repro_torch beside this "
                          "script; run it from a checkout of the repository")
     sys.path.insert(0, src)
+    if sys.argv[1:2] == ["--mp-worker"]:
+        # one rank of phase_multiprocess, started by torchrun
+        return mp_worker(sys.argv[2])
     t_all = time.perf_counter()
     smi = phase_env()
     phase_build()
@@ -2735,7 +3301,7 @@ def main() -> int:
 
     (yard, activity, launches, sharded, sharded_launches, lanes,
      dist_trials_out, extra) = flywire_section(smi)
-    cli_launches = phase_cli(smi)
+    cli_launches, cli_torchrun_s = phase_cli(smi)
     extra["serve_cli_s"] = phase_serve_cli(smi)
     lif_yard, lif_ms_step = phase_lif_path(smi)
     for name, (ms, plain_ms, bound, lib_ms, err, n) in lif_yard.items():
@@ -2798,6 +3364,13 @@ def main() -> int:
             if name == "fused_deliver_lif":
                 kernels[-1]["resilient_p12_launches"] = extra[
                     "resilient_p12"]["launches"]
+        if name in extra["multiprocess_p12"]["launches"]:
+            # the 12-rank run (one process a partition, gloo), summed
+            # over the ranks, counted from 0 before each run
+            kernels[-1]["multiprocess_p12_launches"] = extra[
+                "multiprocess_p12"]["launches"][name]
+            kernels[-1]["multiprocess_p12_max_abs_err"] = extra[
+                "multiprocess_p12"]["max_abs_err"][name]
     check(all(k["launches"] > 0 for k in kernels)
           and all(k["sharded_p12"]["launches"] > 0
                   and k["sharded_p12"]["trials_b3_launches"] > 0
@@ -2811,6 +3384,11 @@ def main() -> int:
               if "serving_launches" in k)
           and len([k for k in kernels if "serving_launches" in k]) == 2,
           "a delivery kernel never launched on the serving path")
+    check(all(k["multiprocess_p12_launches"] > 0 for k in kernels
+              if "multiprocess_p12_launches" in k)
+          and len([k for k in kernels
+                   if "multiprocess_p12_launches" in k]) == 2,
+          "a delivery kernel never launched on the 12-rank path")
     print(f"total {time.perf_counter() - t_all:.3f} s; LIF entry points "
           f"{json.dumps({k: round(v, 5) for k, v in lif_ms_step.items()})} "
           f"ms/step", flush=True)
@@ -2822,6 +3400,9 @@ def main() -> int:
     print(json.dumps({"serving": extra["serving"],
                       "resilient_p12": extra["resilient_p12"],
                       "serve_cli_s": extra["serve_cli_s"]}))
+    print(json.dumps({"exact_engines": extra["exact_engines"],
+                      "multiprocess_p12": extra["multiprocess_p12"],
+                      "cli_torchrun_p12_s": cli_torchrun_s}))
     print(json.dumps({"activity": activity}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

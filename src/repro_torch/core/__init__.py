@@ -11,7 +11,8 @@ from .capacity import (DISTRIBUTED_CAPACITY, MONOLITHIC_CAPACITY,
                        CapacityConfig, escalate_capacity)
 from .compress import WEIGHT_BITS, quantize_weights
 from .connectome import (Connectome, cache_path, from_edges,
-                         synthetic_flywire, synthetic_flywire_cached)
+                         load_flywire_parquet, synthetic_flywire,
+                         synthetic_flywire_cached)
 from .engine import (SimCarry, SimConfig, SimResult, build_synapses,
                      init_carry, resolve_device, run_steps, simulate,
                      spike_rates_hz)

@@ -228,6 +228,25 @@ def synthetic_flywire(
     return from_edges(n, pre, post, w)
 
 
+def load_flywire_parquet(path: str) -> Connectome:
+    """Load the real FlyWire connectivity table (columns: pre_root_id,
+    post_root_id, and weight or else syn_count).  The root ids map to
+    0..n-1 in ascending order; same-pair rows are condensed by
+    :func:`from_edges`.  Needs ``pyarrow`` at run time (imported here
+    only)."""
+    import importlib
+
+    pq = importlib.import_module("pyarrow.parquet")
+    tbl = pq.read_table(path).to_pydict()
+    pre_ids = np.asarray(tbl["pre_root_id"])
+    post_ids = np.asarray(tbl["post_root_id"])
+    w = np.asarray(tbl.get("weight", tbl.get("syn_count")))
+    uniq, inv = np.unique(np.concatenate([pre_ids, post_ids]),
+                          return_inverse=True)
+    pre, post = inv[:len(pre_ids)], inv[len(pre_ids):]
+    return from_edges(len(uniq), pre, post, w)
+
+
 def cache_path(n: int, seed: int, **kw) -> str:
     """Cache filename for a synthetic connectome.
 

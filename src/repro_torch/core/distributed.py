@@ -1,4 +1,4 @@
-"""Partitioned multi-core SNN simulation (paper §3.2.2-3.2.3), emulated.
+"""Partitioned multi-core SNN simulation (paper §3.2.2-3.2.3).
 
 Counterpart of ``repro/core/distributed.py``.  A DCSR snapshot's P
 partitions each run the step of :mod:`repro_torch.core.step` through a
@@ -7,24 +7,44 @@ registered exchange scheme (``bitmap``, ``event``, ``blocked``, or the
 is the scheme's collective.
 
 The reference runs the partitions as one program, vmapped with a named
-axis on one device (``emulate=True``) or sharded over a device mesh.
-Here ``emulate=True`` runs them on one device, one after another: each
-step, every partition's exchange half, then the emulated ``all_gather``
-of their contributions in partition order, then every partition's rest
-of the step (:func:`_run_emulated`).  Each step's exchange sees the
-absolute step index, so the ``faulty`` scheme's injections fire at the
-same steps in a resumed run as in an unbroken one.  The PRNG streams
-are per partition and independent, so the order of the partitions
-changes no result.  The real multi-device path (``emulate=False``,
-``torch.distributed`` over several GPUs) is not ported: it raises
-``NotImplementedError``.
+axis on one device (``emulate=True``) or under ``shard_map`` with one
+partition per device of a mesh.  Here:
+
+* ``emulate=True`` runs them on one device, one after another: each
+  step, every partition's exchange half, then the emulated
+  ``all_gather`` of their contributions in partition order, then every
+  partition's rest of the step (:func:`_run_parts`);
+* ``emulate=False`` (or a ``mesh``) is PyTorch's form of ``shard_map``:
+  SPMD, one process a partition (``torchrun``, or
+  ``torch.multiprocessing``), rank p running partition p
+  (:func:`make_core_mesh`, :class:`CoreMesh`).  Every rank holds the
+  same DCSR (the host code is deterministic; the ranks check a digest
+  of ``perm``) and builds only its own partition's scheme state,
+  stimulus shard, pad mask, voltage rows and carry on its own device.
+  Each step is the same two halves with the process-group
+  ``all_gather`` between them (:func:`_run_parts` on the rank's one
+  partition); at the end every
+  rank gathers every partition's carry and records and maps them back,
+  so every rank returns the same :class:`DistResult`, bitwise the
+  emulated run's.
+
+Each step's exchange sees the absolute step index, so the ``faulty``
+scheme's injections fire at the same steps in a resumed run as in an
+unbroken one.  The PRNG streams are per partition and independent, so
+the order of the partitions changes no result.
 
 Supervision (``chunk_steps``, checkpoints, ``sim.health``) and telemetry
 go through :func:`repro_torch.core.health.run_chunked` as on the
 monolithic path, with the list of per-partition carries as the carry
 and the records stacked over the partitions; as in the reference, the
 trial-batched path (:func:`repro_torch.exp.run_dist_trials`) rejects
-supervision.
+supervision.  On the multi-process path a rank's list is its own
+partition's carry; the health checks sum the counters over the ranks,
+and rank 0 writes each checkpoint in the emulated path's layout (every
+partition's carry, gathered), from which every rank resumes its own
+partition: an emulated checkpoint resumes a multi-process run, and the
+reverse.  ``faulty``'s ``host_supervise`` runs on every rank from the
+same host-side plan.
 
 Records and counts come back in original neuron ids through ``inv_perm``;
 pad neurons never spike (the step's pad mask) and never appear in any
@@ -42,6 +62,9 @@ keeps it.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
+import os
 import time
 import warnings
 from typing import Any, NamedTuple, Optional
@@ -56,7 +79,7 @@ from repro_torch.tree import map_tensors
 from .capacity import DISTRIBUTED_CAPACITY, CapacityConfig, merge_legacy_capacity
 from .dcsr import DCSR
 from .engine import SimConfig, resolve_device, single_lane
-from .exchange import Topology, all_gather, get_scheme
+from .exchange import Topology, all_gather, all_gather_group, get_scheme
 from .health import (SimCheckpointer, carry_counters, health_stats_init,
                      run_chunked)
 from .neuron import LIFState, init_state
@@ -94,10 +117,180 @@ class DistResult(NamedTuple):
     stats: dict                   # scheme counters (blocked: tiles_*)
 
 
-def make_core_mesh(n_cores: int, devices=None):
-    raise NotImplementedError(
-        "the multi-device path (one partition per GPU over "
-        "torch.distributed) is not ported; use emulate=True")
+BACKENDS = ("nccl", "gloo")
+
+
+@dataclasses.dataclass(frozen=True)
+class CoreMesh:
+    """This process's place in the multi-process partitioned run: the
+    process group, the rank (= the partition index), the world size (=
+    the number of partitions) and the rank's device.
+
+    ``nccl`` moves the payloads device to device and needs one GPU a
+    rank.  ``gloo`` is the backend that can put several ranks on one card
+    (or run them on the CPU): its payloads cross host memory, by an
+    explicit ``.cpu()`` copy of each contribution before the collective
+    and a copy of the gathered tensors back to the rank's device after
+    it."""
+
+    group: Any
+    rank: int
+    world_size: int
+    device: torch.device
+    backend: str
+
+    def all_gather(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``x`` (same shape and dtype on each), in rank
+        order: one ``torch.distributed.all_gather`` into a preallocated
+        list.  Bool tensors travel as their uint8 bytes."""
+        import torch.distributed as dist
+        is_bool = x.dtype == torch.bool
+        send = (x.view(torch.uint8) if is_bool else x).contiguous()
+        host = self.backend == "gloo" and send.device.type != "cpu"
+        if host:
+            send = send.cpu()
+        out = [torch.empty_like(send) for _ in range(self.world_size)]
+        dist.all_gather(out, send, group=self.group)
+        if host:
+            out = [o.to(x.device) for o in out]
+        return [o.view(torch.bool) for o in out] if is_bool else out
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise sum of every rank's ``x``."""
+        return torch.stack(self.all_gather(x)).sum(dim=0)
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+        dist.barrier(group=self.group)
+
+
+def make_core_mesh(n_cores: int, devices=None, *, backend: str = "nccl",
+                   init_method: Optional[str] = None) -> CoreMesh:
+    """The :class:`CoreMesh` of this process, one partition a process.
+
+    Uses the default process group if one is initialized (its backend
+    must be ``backend``), else initializes it from ``init_method``
+    (default ``env://``: the ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR``
+    that ``torchrun`` sets).  The world size must equal ``n_cores``.
+    ``devices[rank]`` is this rank's device; by default
+    ``cuda:LOCAL_RANK`` (modulo the cards of the host), and without a
+    card that raises: nothing falls back to the CPU.  ``nccl`` refuses
+    two ranks on one device, so a ``nccl`` mesh whose ranks would share
+    a card raises here, before the first step; ``gloo`` puts any number
+    of ranks on a card."""
+    import torch.distributed as dist
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
+    if not dist.is_available():
+        raise RuntimeError("torch.distributed is not available")
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise ValueError(f"the process group runs "
+                             f"{dist.get_backend()!r}, not {backend!r}")
+    elif init_method is None and "RANK" not in os.environ:
+        raise RuntimeError(
+            "no process group: the multi-process path runs one process a "
+            "partition; launch it under torchrun (RANK, WORLD_SIZE, "
+            "LOCAL_RANK) or pass init_method, or use emulate=True")
+    else:
+        dist.init_process_group(backend, init_method=init_method or "env://")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if world != n_cores:
+        raise ValueError(f"{world} processes for {n_cores} partitions: the "
+                         f"world size must equal the number of partitions")
+    device = rank_device(backend, rank, world, devices)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return CoreMesh(dist.group.WORLD, rank, world, device, backend)
+
+
+def rank_device(backend: str, rank: int, world: int, devices=None
+                ) -> torch.device:
+    """Rank ``rank``'s device: ``devices[rank]``, or by default
+    ``cuda:LOCAL_RANK`` modulo the host's cards (raising without one).
+    Raises for ``nccl`` when two ranks would share a device (NCCL refuses
+    them) or a rank would run off the GPU."""
+    if devices is not None:
+        if len(devices) != world:
+            raise ValueError(f"{len(devices)} devices for {world} ranks")
+        device = torch.device(devices[rank])
+        shared = len({str(torch.device(x)) for x in devices}) < world
+    else:
+        n_gpu = torch.cuda.device_count()
+        if n_gpu == 0:
+            raise RuntimeError("no CUDA device: pass devices= to run the "
+                               "ranks elsewhere (gloo only)")
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = torch.device("cuda", local % n_gpu)
+        shared = int(os.environ.get("LOCAL_WORLD_SIZE", world)) > n_gpu
+    if backend == "nccl" and (shared or device.type != "cuda"):
+        raise ValueError(
+            "nccl needs one GPU a rank: these ranks would share a device "
+            "or run off the GPU; use backend='gloo' to put several ranks "
+            "on one card")
+    return device
+
+
+def gather_tree(mesh: CoreMesh, tree) -> list:
+    """Every rank's ``tree`` (the same structure, shapes and dtypes on
+    each: a carry, a records dict), in rank order; one ``all_gather`` a
+    tensor leaf, other leaves kept from this rank's."""
+    leaves: list = []
+    map_tensors(lambda x: leaves.append(x) or x, tree)
+    gathered = [mesh.all_gather(x) for x in leaves]
+    out = []
+    for r in range(mesh.world_size):
+        it = iter(g[r] for g in gathered)
+        out.append(map_tensors(lambda _x: next(it), tree))
+    return out
+
+
+def _check_same_partition(d: DCSR, mesh: CoreMesh) -> None:
+    """Raise on every rank unless there is one rank a partition and all
+    ranks hold the same partitioning (a digest of ``perm``)."""
+    if mesh.world_size != d.n_parts:
+        raise ValueError(f"{mesh.world_size} ranks for {d.n_parts} "
+                         f"partitions")
+    h = hashlib.sha256(np.ascontiguousarray(d.perm).tobytes()).digest()
+    mine = torch.tensor([int.from_bytes(h[:8], "little", signed=True)],
+                        dtype=torch.int64, device=mesh.device)
+    seen = [int(x) for x in mesh.all_gather(mine)]
+    if len(set(seen)) != 1:
+        raise RuntimeError(f"the ranks hold different partitionings "
+                           f"(perm digests {seen})")
+
+
+class RankCheckpointer(SimCheckpointer):
+    """The :class:`~repro_torch.core.health.SimCheckpointer` of one rank
+    of the multi-process path, in the emulated path's layout: at each
+    save every rank's carry and records are gathered and rank 0 writes
+    the list of P carries and the ``[P, ...]`` records; a restore reads
+    that layout on every rank and keeps the rank's own partition."""
+
+    def __init__(self, directory: str, mesh: CoreMesh,
+                 async_save: bool = False):
+        super().__init__(directory, async_save=async_save)
+        self.mesh = mesh
+
+    def save(self, step: int, carry, records: dict) -> None:
+        carries = gather_tree(self.mesh, carry[0])
+        parts = gather_tree(self.mesh, dict(records))
+        recs = {k: torch.cat([r[k] for r in parts]) for k in records}
+        if self.mesh.rank == 0:
+            super().save(step, carries, recs)
+
+    def restore_latest(self, carry_template):
+        # rank 0 of an earlier run may still be writing: it reaches this
+        # barrier only after its final join
+        self.mesh.barrier()
+        restored = super().restore_latest(
+            [carry_template[0]] * self.mesh.world_size)
+        if restored is None:
+            return None
+        carries, records, step = restored
+        r = self.mesh.rank
+        return [carries[r]], {k: v[r:r + 1] for k, v in records.items()}, step
 
 
 def _resolve_dist_stimulus(d: DCSR, sc: SimConfig, sugar_neurons, stimulus):
@@ -139,15 +332,16 @@ def _resolve_dist_probes(d: DCSR, sc: SimConfig, probes):
 
 
 def _init_dist_carry(d: DCSR, cfg: DistConfig, stim, scheme, keys,
-                     device) -> list[SimCarry]:
-    """One carry per partition, in the step's lane layout; ``keys`` is
-    [P, B, 2]: ``keys[p, b]`` is lane b's key on partition p."""
+                     device, parts=None) -> list[SimCarry]:
+    """One carry per partition (with ``parts``, those partitions'), in the
+    step's lane layout; ``keys`` is [P, B, 2]: ``keys[p, b]`` is lane b's
+    key on partition p."""
     P_, U = d.n_parts, d.part_size
     B = keys.shape[1]
     sc = cfg.sim
     lif0 = init_state(P_ * U, sc.params, sc.fixed_point, device=device)
     carries = []
-    for p in range(P_):
+    for p in (range(P_) if parts is None else parts):
         carries.append(SimCarry(
             lif=LIFState(*(x.reshape(P_, U)[p].expand(B, U).clone()
                            for x in lif0)),
@@ -163,24 +357,26 @@ def _init_dist_carry(d: DCSR, cfg: DistConfig, stim, scheme, keys,
     return carries
 
 
-def _run_emulated(scheme, states, carries, stims, pads, vrows,
-                  cfg: DistConfig, probes, t_steps: int, topo: Topology,
-                  partitionable: bool, t0: int = 0):
-    """The partitions' steps on one device, from the absolute step
-    ``t0``: per step, every partition's exchange half, the emulated
-    all_gather, every partition's finish.  Returns the final carries and
-    each partition's records, ``[B, T, ...]`` per name.  The given list
-    and its carries are not modified (each ring is copied once, then
-    written in place)."""
+def _run_parts(scheme, states, carries, stims, pads, vrows,
+               cfg: DistConfig, probes, t_steps: int, topos: list,
+               partitionable: bool, t0: int = 0, gather=all_gather):
+    """The steps of the partitions this process runs, from the absolute
+    step ``t0``: per step, each one's exchange half, the collective
+    ``gather`` of their contributions, each one's finish.  Emulated,
+    these are all the partitions and ``gather`` is the emulated
+    :func:`all_gather`; on the multi-process path they are the rank's
+    own partition and ``gather`` the process group's.  Returns the final
+    carries and each partition's records, ``[B, T, ...]`` per name.  The
+    given list and its carries are not modified (each ring is copied
+    once, then written in place)."""
     P_ = len(carries)
     carries = [c._replace(ring=c.ring.clone()) for c in carries]
-    topos = [topo._replace(index=p) for p in range(P_)]
     common = dict(scheme=scheme, cap=cfg.capacity, partitionable=partitionable)
     records: list[dict[str, list]] = [{} for _ in range(P_)]
     for t in range(t0, t0 + t_steps):
         exs = [step_exchange(carries[p], t, state=states[p], stim=stims[p],
                              topo=topos[p], **common) for p in range(P_)]
-        gathered = all_gather([ex.sent for ex in exs])
+        gathered = gather([ex.sent for ex in exs])
         for p in range(P_):
             carries[p], rec = step_finish(
                 carries[p], exs[p], gathered, t, state=states[p],
@@ -190,6 +386,20 @@ def _run_emulated(scheme, states, carries, stims, pads, vrows,
                 records[p].setdefault(k, []).append(v)
     return carries, [{k: torch.stack(v, dim=1) for k, v in r.items()}
                      for r in records]
+
+
+_SHARD_MAP_CALLS: dict[str, obs.InstrumentedCall] = {}
+
+
+def _run_rank_call(scheme_name: str) -> obs.InstrumentedCall:
+    """:func:`_run_parts` on a rank, under the compile-cache name the
+    reference's ``shard_map`` program has,
+    ``distributed.shard_map.<scheme>``."""
+    if scheme_name not in _SHARD_MAP_CALLS:
+        _SHARD_MAP_CALLS[scheme_name] = obs.InstrumentedCall(
+            _run_parts, f"distributed.shard_map.{scheme_name}",
+            static_argnums=(6, 7, 8))
+    return _SHARD_MAP_CALLS[scheme_name]
 
 
 def _to_orig(d: DCSR, arr: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -251,7 +461,7 @@ def _assemble(d: DCSR, carries: list[SimCarry], records: list[dict],
 # emulated program: the config, probes and step count by value, the
 # scheme by its type.
 _run_emulated_call = obs.InstrumentedCall(
-    _run_emulated, "distributed.run_emulated", static_argnums=(6, 7, 8))
+    _run_parts, "distributed.run_emulated", static_argnums=(6, 7, 8))
 
 
 def run_partitioned(d: DCSR, cfg: DistConfig, t_steps: int, keys,
@@ -259,11 +469,14 @@ def run_partitioned(d: DCSR, cfg: DistConfig, t_steps: int, keys,
                     partitionable: bool, trials: bool = True,
                     chunk_steps: Optional[int] = None,
                     checkpoint_dir: Optional[str] = None,
-                    resume: bool = False, async_checkpoint: bool = False):
+                    resume: bool = False, async_checkpoint: bool = False,
+                    mesh: Optional[CoreMesh] = None):
     """Build the scheme's state, shard the stimulus and run the partitions
-    from ``keys`` [P, B, 2] (emulated on ``device``); returns the final
-    carries, each partition's ``[B, T, ...]`` records and the probe owners.
-    Shared by :func:`simulate_distributed` and
+    from ``keys`` [P, B, 2], emulated on ``device``, or with a ``mesh``
+    this rank's partition on its device (:func:`_run_on_mesh`); returns
+    the final carries, each partition's ``[B, T, ...]`` records and the
+    probe owners (on every rank: the mesh path gathers them).  Shared by
+    :func:`simulate_distributed` and
     :func:`repro_torch.exp.run_dist_trials` (``trials``).  Both go through
     the chunk loop (one chunk when ``chunk_steps`` is None); the trial
     path rejects supervision, as the reference's does."""
@@ -277,6 +490,10 @@ def run_partitioned(d: DCSR, cfg: DistConfig, t_steps: int, keys,
             "health) is not supported on the trial-batched path; "
             "supervise seeds as separate simulate_distributed runs")
     scheme = get_scheme(cfg.scheme)
+    if mesh is not None:
+        return _run_on_mesh(d, cfg, scheme, t_steps, keys, sugar_neurons,
+                            stimulus, probes, partitionable, chunk_steps,
+                            checkpoint_dir, resume, async_checkpoint, mesh)
     P_, U = d.n_parts, d.part_size
     with obs.span("build", what="scheme_state", scheme=cfg.scheme):
         state = scheme.build(d, cfg.sim, cfg.capacity, device)
@@ -292,11 +509,11 @@ def run_partitioned(d: DCSR, cfg: DistConfig, t_steps: int, keys,
     states = [part(state, p) for p in range(P_)]
     stims = [part(stim, p) for p in range(P_)]
     vrows = rows if probes.voltage else [None] * P_
-    topo = Topology(P_, U, axis=AXIS)
+    topos = [Topology(P_, U, axis=AXIS, index=p) for p in range(P_)]
 
     def run(cs, k, t0):
         return _run_emulated_call(scheme, states, cs, stims, pad, vrows,
-                                  cfg, probes, k, topo, partitionable, t0)
+                                  cfg, probes, k, topos, partitionable, t0)
 
     ckpt = (SimCheckpointer(checkpoint_dir, async_save=async_checkpoint)
             if checkpoint_dir is not None else None)
@@ -317,6 +534,64 @@ def run_partitioned(d: DCSR, cfg: DistConfig, t_steps: int, keys,
     return carries, records, owner
 
 
+def _run_on_mesh(d: DCSR, cfg: DistConfig, scheme, t_steps: int, keys,
+                 sugar_neurons, stimulus, probes, partitionable: bool,
+                 chunk_steps, checkpoint_dir, resume: bool,
+                 async_checkpoint: bool, mesh: CoreMesh):
+    """:func:`run_partitioned` on one rank: its own partition's state,
+    stimulus shard, pad mask, voltage rows and carry on its device, the
+    chunk loop over :func:`_run_parts` (the health checks over every
+    rank's counters, checkpoints in the emulated layout), then every
+    partition's carry and records gathered to every rank."""
+    _check_same_partition(d, mesh)
+    p, device, U = mesh.rank, mesh.device, d.part_size
+    with obs.span("build", what="scheme_state", scheme=cfg.scheme):
+        state = map_tensors(lambda a: a[0], scheme.build(
+            d, cfg.sim, cfg.capacity, device, parts=[p]))
+    stim = _resolve_dist_stimulus(d, cfg.sim, sugar_neurons,
+                                  stimulus).to(device)
+    probes, rows, owner = _resolve_dist_probes(d, cfg.sim, probes)
+    pad = torch.from_numpy(d.inv_perm[p * U:(p + 1) * U] >= 0).to(device)
+    vrows = torch.from_numpy(rows[p]).to(device) if probes.voltage else None
+    carry = _init_dist_carry(d, cfg, stim, scheme, keys, device, parts=[p])
+    stim = map_tensors(lambda a: a[p], stim)
+    topo = Topology(d.n_parts, U, axis=AXIS, index=p)
+    call = _run_rank_call(cfg.scheme)
+    gather = functools.partial(all_gather_group, mesh=mesh)
+
+    def run_chunk(cs, s, k):
+        cs, recs = call(scheme, [state], cs, [stim], [pad], [vrows], cfg,
+                        probes, k, [topo], partitionable, s, gather)
+        return cs, {name: v[None] for name, v in recs[0].items()}
+
+    ckpt = (RankCheckpointer(checkpoint_dir, mesh,
+                             async_save=async_checkpoint)
+            if checkpoint_dir is not None else None)
+    carries, stacked = run_chunked(
+        run_chunk, carry, t_steps, chunk_steps, time_axis=2,
+        health=cfg.sim.health, n=d.n_orig, dt_ms=cfg.sim.params.dt,
+        checkpointer=ckpt, resume=resume,
+        host_hook=getattr(scheme, "host_supervise", None), mesh=mesh)
+    records = gather_tree(mesh, {k: v[0] for k, v in stacked.items()})
+    return gather_tree(mesh, carries[0]), records, owner
+
+
+def _mesh_for(d: DCSR, emulate: bool, mesh: Optional[CoreMesh], device
+              ) -> Optional[CoreMesh]:
+    """The mesh of a multi-process run (None for an emulated one)."""
+    if mesh is not None and not isinstance(mesh, CoreMesh):
+        raise TypeError(f"mesh must be a CoreMesh (make_core_mesh), not "
+                        f"{type(mesh).__name__}")
+    if mesh is None and not emulate:
+        mesh = make_core_mesh(
+            d.n_parts, None if device is None else [device] * d.n_parts)
+    if (mesh is not None and device is not None
+            and torch.device(device) != mesh.device):
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"{mesh.device}")
+    return mesh
+
+
 def simulate_distributed(
     d: DCSR,
     cfg: DistConfig,
@@ -335,7 +610,8 @@ def simulate_distributed(
     device=None,
     partitionable: bool = True,
 ) -> DistResult:
-    """Run the partitioned network, its partitions emulated on one device.
+    """Run the partitioned network: its partitions emulated on one
+    device, or one partition a process (``emulate=False``, below).
 
     ``cfg.scheme`` selects a registered exchange scheme other than
     ``local``.  ``stimulus`` is a stateless stimulus of
@@ -351,12 +627,19 @@ def simulate_distributed(
     ``async_checkpoint`` mirror :func:`repro_torch.core.simulate`'s
     chunked supervision on the partitioned path, and with a telemetry
     session active the run emits the same event stream.
+
+    ``emulate=False``, or a ``mesh`` (:func:`make_core_mesh`), runs the
+    multi-process path: this process runs partition ``mesh.rank`` on
+    ``mesh.device`` and every rank returns the whole result, bitwise the
+    emulated one.  Without a ``mesh`` one is made for ``d.n_parts``
+    ranks with the ``nccl`` backend (``device``, if given, for every
+    rank).  A rank's telemetry counts its own partition, apart from the
+    ``run_end`` counters, which are the gathered run's.
     """
-    if not emulate or mesh is not None:
-        make_core_mesh(d.n_parts)
+    mesh = _mesh_for(d, emulate, mesh, device)
     tele = obs.active()
     with obs.span("simulate_distributed", scheme=cfg.scheme):
-        device = resolve_device(device)
+        device = mesh.device if mesh is not None else resolve_device(device)
         if tele is not None:
             tele.emit("run_start", kind="simulate_distributed",
                       scheme=cfg.scheme, n=d.n_orig, t_steps=t_steps,
@@ -369,7 +652,7 @@ def simulate_distributed(
             d, cfg, t_steps, keys[:, None], sugar_neurons, stimulus, probes,
             device, partitionable, trials=False, chunk_steps=chunk_steps,
             checkpoint_dir=checkpoint_dir, resume=resume,
-            async_checkpoint=async_checkpoint)
+            async_checkpoint=async_checkpoint, mesh=mesh)
         # the one lane, its axis taken off before the mapping to original
         # ids
         carries = [single_lane(c) for c in carries]
@@ -386,5 +669,6 @@ def simulate_distributed(
                       raster=recs.get("raster"), records=recs, stats=stats)
 
 
-__all__ = ["AXIS", "DistConfig", "DistResult", "make_core_mesh",
+__all__ = ["AXIS", "BACKENDS", "CoreMesh", "DistConfig", "DistResult",
+           "RankCheckpointer", "gather_tree", "make_core_mesh", "rank_device",
            "run_partitioned", "simulate_distributed"]

@@ -68,7 +68,7 @@ class SimConfig:
     spike_capacity: Optional[int] = None
     syn_budget: Optional[int] = None
     block_capacity: Optional[int] = None
-    ell_width_cap: int = 4096        # SSD fan-in cap (ell engine, not ported)
+    ell_width_cap: int = 4096        # SSD fan-in cap (the ell engine)
     collect_raster: bool = False     # deprecated: use ProbeSpec(raster=True)
     capacity: Optional[CapacityConfig] = None   # event-path static budgets
     health: Optional[HealthConfig] = None   # in-step sentinels + thresholds

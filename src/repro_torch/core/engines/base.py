@@ -7,10 +7,6 @@ registers a singleton instance at import time.  ``build(c, cfg, device)``
 moves the connectome onto the device once per :func:`simulate` call;
 ``deliver(state, spikes, cfg)`` runs every step and returns ``(g_units
 [n] f32, dropped)``.
-
-Engines of the reference that are not ported yet are known by name, so
-that asking for one raises ``NotImplementedError`` instead of a lookup
-error.
 """
 
 from __future__ import annotations
@@ -20,10 +16,6 @@ from typing import Any, Protocol, runtime_checkable
 import torch
 
 from ..connectome import Connectome
-
-#: Engines of ``repro.core.engines`` that this package does not have yet.
-NOT_PORTED = ("binned", "dense", "ell")
-
 
 @runtime_checkable
 class DeliveryEngine(Protocol):
@@ -60,10 +52,6 @@ def register(cls):
 def get_engine(name: str) -> DeliveryEngine:
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {name!r} is not ported to PyTorch yet; ported: "
-            f"{sorted(_REGISTRY)}")
     raise ValueError(
         f"unknown engine {name!r}; available: {sorted(_REGISTRY)}")
 
@@ -86,6 +74,5 @@ def quantized_in_weights(c: Connectome, cfg):
     return w
 
 
-__all__ = ["DeliveryEngine", "NOT_PORTED", "available_engines",
-           "engine_integrates_lif", "get_engine", "quantized_in_weights",
-           "register"]
+__all__ = ["DeliveryEngine", "available_engines", "engine_integrates_lif",
+           "get_engine", "quantized_in_weights", "register"]

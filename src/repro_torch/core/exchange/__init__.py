@@ -16,8 +16,9 @@ faulty   any of the above with injected faults (dropped or corrupted
 ======== ==================================================================
 """
 
-from .base import (ExchangeScheme, Topology, all_gather, available_schemes,
-                   get_scheme, memoized_build, register_scheme)
+from .base import (ExchangeScheme, Topology, all_gather, all_gather_group,
+                   available_schemes, get_scheme, memoized_build,
+                   register_scheme)
 from .arrays import DistArrays, build_dist_arrays, build_src_gfo
 from . import bitmap, blocked, event, faulty, local  # noqa: F401 (register)
 from .bitmap import BitmapExchange
@@ -27,7 +28,7 @@ from .faulty import ExchangeFault, FaultSpec, FaultyExchange, configure_faulty
 from .local import LocalExchange
 
 __all__ = [
-    "ExchangeScheme", "Topology", "all_gather",
+    "ExchangeScheme", "Topology", "all_gather", "all_gather_group",
     "available_schemes", "get_scheme", "memoized_build", "register_scheme",
     "DistArrays", "build_dist_arrays", "build_src_gfo",
     "BitmapExchange", "BlockedExchange", "EventExchange", "LocalExchange",

@@ -64,26 +64,39 @@ def _host_dist_arrays(d: DCSR) -> dict:
                 src_gfo=gfo.reshape(P_, U))
 
 
-def build_dist_arrays(d: DCSR, device) -> DistArrays:
-    """The bitmap/event stores of ``d`` on ``device``, memoized on both."""
+def _parts_key(parts) -> str:
+    return "all" if parts is None else ",".join(str(int(p)) for p in parts)
+
+
+def build_dist_arrays(d: DCSR, device, parts=None) -> DistArrays:
+    """The bitmap/event stores of ``d`` on ``device`` (with ``parts``,
+    only those partitions', still stacked on the leading axis), memoized
+    on all three.  The host regroup covers every partition either way."""
     def build():
         with obs.span("build", what="dist_arrays"):
             host = _host_dist_arrays(d)
+            pick = slice(None) if parts is None else list(parts)
             return DistArrays(**{k: torch.from_numpy(
-                np.ascontiguousarray(v)).to(device) for k, v in host.items()})
-    return memoized_build(d, f"dist_arrays:{torch.device(device)}", build)
+                np.ascontiguousarray(v[pick])).to(device)
+                for k, v in host.items()})
+    return memoized_build(
+        d, f"dist_arrays:{torch.device(device)}:{_parts_key(parts)}", build)
 
 
-def build_src_gfo(d: DCSR, device) -> torch.Tensor:
-    """[P, U] int32 global fan-out of local sources, standalone (one flat
-    bincount), for the ``blocked`` scheme's drop accounting."""
+def build_src_gfo(d: DCSR, device, parts=None) -> torch.Tensor:
+    """[P, U] int32 global fan-out of local sources (with ``parts``, those
+    partitions' rows), standalone (one flat bincount), for the
+    ``blocked`` scheme's drop accounting."""
     def build():
         n_glob = d.n_parts * d.part_size
         src = d.syn_src[d.syn_src < n_glob]
         gfo = np.bincount(src, minlength=n_glob).astype(np.int32)
-        return torch.from_numpy(gfo.reshape(d.n_parts, d.part_size)).to(
-            device)
-    return memoized_build(d, f"src_gfo:{torch.device(device)}", build)
+        gfo = gfo.reshape(d.n_parts, d.part_size)
+        if parts is not None:
+            gfo = gfo[list(parts)]
+        return torch.from_numpy(np.ascontiguousarray(gfo)).to(device)
+    return memoized_build(
+        d, f"src_gfo:{torch.device(device)}:{_parts_key(parts)}", build)
 
 
 __all__ = ["DistArrays", "build_dist_arrays", "build_src_gfo"]

@@ -25,6 +25,16 @@ partitions.  Without the leading axis a call is one lane.
 A scheme may also offer the step-aware ``exchange_at(state, delayed, cap,
 topo, t)`` (the ``faulty`` wrapper does); the step then calls it with the
 absolute step in place of ``exchange``.
+
+The collective has two forms.  :func:`all_gather` is the emulated one,
+over the list of every partition's ``sent`` in one process.
+:func:`all_gather_group` is the multi-process one: each rank (one
+partition, :class:`repro_torch.core.distributed.CoreMesh`) contributes
+its own ``sent`` and receives every partition's, laid out in partition
+order exactly as the emulated list is, so a scheme's ``deliver`` cannot
+tell the two apart.  ``build(source, sim, cap, device, parts=None)``
+builds every partition's state, stacked on a leading axis, or with
+``parts`` only those partitions' (a rank builds its own).
 """
 
 from __future__ import annotations
@@ -53,7 +63,7 @@ class ExchangeScheme(Protocol):
 
     name: str
 
-    def build(self, source: Any, sim, cap, device) -> Any:
+    def build(self, source: Any, sim, cap, device, parts=None) -> Any:
         ...
 
     def exchange(self, state: Any, delayed, cap, topo: Topology
@@ -76,6 +86,16 @@ def all_gather(sent: list[torch.Tensor]) -> torch.Tensor:
     partition order, along the last axis, lane by lane (one partition: its
     own)."""
     return sent[0] if len(sent) == 1 else torch.cat(sent, dim=-1)
+
+
+def all_gather_group(sent: list[torch.Tensor], mesh) -> torch.Tensor:
+    """The process-group collective: this rank's contribution in (the
+    list of its one partition's), every rank's out, in rank (=
+    partition) order along the last axis, as :func:`all_gather` lays out
+    the emulated list (``mesh.all_gather`` is one
+    ``torch.distributed.all_gather`` into a preallocated list)."""
+    (mine,) = sent
+    return all_gather(mesh.all_gather(mine))
 
 
 _REGISTRY: dict[str, ExchangeScheme] = {}
@@ -122,6 +142,6 @@ def memoized_build(source: Any, key: str, build_fn):
     return out
 
 
-__all__ = ["ExchangeScheme", "Topology", "all_gather",
+__all__ = ["ExchangeScheme", "Topology", "all_gather", "all_gather_group",
            "available_schemes", "get_scheme", "memoized_build",
            "register_scheme"]

@@ -32,8 +32,8 @@ def deliver_bitmap(spk_global: torch.Tensor, arr_src, arr_tgt, arr_w,
 class BitmapExchange:
     name = "bitmap"
 
-    def build(self, d, sim, cap, device):
-        return build_dist_arrays(d, device)
+    def build(self, d, sim, cap, device, parts=None):
+        return build_dist_arrays(d, device, parts)
 
     def init_stats(self) -> dict:
         return {}

@@ -40,7 +40,7 @@ class ShardedBlockedState:
     weights: torch.Tensor    # [P, n_tb, E, SRC_BLK, TGT_BLK] int16
     src_gfo: torch.Tensor    # [P, U] int32 global fan-out of local sources
     n_sb: int = 0            # global source blocks
-    tiles_stored: int = 0    # over all partitions
+    tiles_stored: int = 0    # over the partitions built
     occupancy: float = 0.0
 
 
@@ -75,17 +75,18 @@ def tile_stats(blk_id: torch.Tensor, n_sb: int, nspk: torch.Tensor) -> dict:
 class BlockedExchange:
     name = "blocked"
 
-    def build(self, d, sim, cap, device) -> ShardedBlockedState:
+    def build(self, d, sim, cap, device, parts=None) -> ShardedBlockedState:
         def build_state():
             from repro_torch.kernels.spike_prop.ops import (
                 build_blocked_sharded)
-            bs = build_blocked_sharded(d, device)
+            bs = build_blocked_sharded(d, device, parts)
             return ShardedBlockedState(
                 blk_id=bs.blk_id, weights=bs.weights,
-                src_gfo=build_src_gfo(d, device), n_sb=bs.n_sb,
+                src_gfo=build_src_gfo(d, device, parts), n_sb=bs.n_sb,
                 tiles_stored=bs.tiles_stored, occupancy=bs.occupancy)
-        return memoized_build(d, f"blocked_state:{torch.device(device)}",
-                              build_state)
+        key = "all" if parts is None else ",".join(map(str, parts))
+        return memoized_build(
+            d, f"blocked_state:{torch.device(device)}:{key}", build_state)
 
     def init_stats(self) -> dict:
         return {"tiles_live": 0, "tiles_skipped": 0}

@@ -62,8 +62,8 @@ def deliver_events(events: torch.Tensor, out_indptr, out_tgt, out_w,
 class EventExchange:
     name = "event"
 
-    def build(self, d, sim, cap, device):
-        return build_dist_arrays(d, device)
+    def build(self, d, sim, cap, device, parts=None):
+        return build_dist_arrays(d, device, parts)
 
     def init_stats(self) -> dict:
         return {}

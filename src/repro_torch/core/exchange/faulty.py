@@ -101,10 +101,10 @@ class FaultyExchange:
         return get_scheme(self._inner)
 
     # -- ExchangeScheme protocol ------------------------------------------
-    def build(self, d, sim, cap, device) -> FaultyState:
+    def build(self, d, sim, cap, device, parts=None) -> FaultyState:
         s = self._spec
         return FaultyState(
-            inner=self.scheme.build(d, sim, cap, device),
+            inner=self.scheme.build(d, sim, cap, device, parts),
             part=int(s.partition),
             drop_at=frozenset(int(t) for t in s.drop_payload_at),
             corrupt_at=frozenset(int(t) for t in s.corrupt_payload_at))

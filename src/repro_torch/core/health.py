@@ -32,7 +32,10 @@ Counterpart of ``repro/core/health.py``:
 A carry here is a :class:`~repro_torch.core.step.SimCarry` (one run, or a
 trial batch on its lane axis), or the list of one such carry per
 partition that the partitioned runner threads; every counter reduction
-sums over all of them.  With a telemetry session active
+sums over all of them.  On the multi-process path a rank's list holds its
+own partition only: the health checks then sum the counters over the
+ranks (``mesh``), and the rank's telemetry counts its own partition.
+With a telemetry session active
 (:mod:`repro_torch.obs`) each chunk boundary synchronizes the device and
 emits one ``chunk`` event, plus ``checkpoint`` and ``health`` events as
 they happen, and the supervisor emits ``restart`` and ``escalation``
@@ -187,14 +190,19 @@ def _counter_tensors(carry, lanes: bool) -> dict:
     return out
 
 
-def carry_counters(carry) -> dict:
+def carry_counters(carry, mesh=None) -> dict:
     """Every cumulative counter of the carry (spikes, drops, scheme
     stats, health sentinels) reduced to a flat name -> int dict: the
     per-chunk telemetry record's payload.  The per-neuron sums run on the
-    device; the whole dict comes to the host in one transfer."""
+    device; the whole dict comes to the host in one transfer.  With a
+    ``mesh`` (:class:`repro_torch.core.distributed.CoreMesh`) the sums
+    are over every rank's partition: a collective, so every rank calls
+    it."""
     sums = _counter_tensors(carry, lanes=False)
-    vals = torch.stack(list(sums.values())).cpu().tolist()
-    return dict(zip(sums, (int(v) for v in vals)))
+    vals = torch.stack(list(sums.values()))
+    if mesh is not None:
+        vals = mesh.all_reduce_sum(vals)
+    return dict(zip(sums, (int(v) for v in vals.cpu().tolist())))
 
 
 def lane_snapshots(step: int, carry) -> list[HealthSnapshot]:
@@ -213,8 +221,8 @@ def lane_snapshots(step: int, carry) -> list[HealthSnapshot]:
     ) for b in range(len(host["spikes"]))]
 
 
-def snapshot(step: int, carry) -> HealthSnapshot:
-    c = carry_counters(carry)
+def snapshot(step: int, carry, mesh=None) -> HealthSnapshot:
+    c = carry_counters(carry, mesh)
     return HealthSnapshot(step=int(step), spikes=c["spikes"],
                           dropped=c["dropped"],
                           nonfinite=c.get("h_nonfinite", 0),
@@ -334,7 +342,7 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
                 time_axis: int = 0, health: Optional[HealthConfig] = None,
                 n: int = 1, dt_ms: float = 0.1,
                 checkpointer: Optional[SimCheckpointer] = None,
-                resume: bool = False, host_hook=None):
+                resume: bool = False, host_hook=None, mesh=None):
     """Drive ``ceil(T/K)`` chunks with host supervision between them:
     ``run_chunk(carry, start_step, k) -> (carry, records)`` runs K steps
     from the absolute step ``start_step`` and leaves the given carry as
@@ -350,7 +358,9 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
     device and emits a ``chunk`` event (wall time, steps/s, cumulative
     and per-chunk counters), plus ``checkpoint`` and ``health`` events;
     the steps themselves are untouched, so results are bitwise the same
-    with telemetry on or off."""
+    with telemetry on or off.  ``mesh`` (a rank of the multi-process
+    path) makes the health checks read the counters summed over the
+    ranks."""
     chunk_steps = int(chunk_steps) if chunk_steps else max(t_steps, 1)
     if chunk_steps <= 0:
         raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
@@ -363,7 +373,7 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
             carry, saved_records, start = restored
             if saved_records:
                 chunks.append(saved_records)
-    prev = snapshot(start, carry) if health is not None else None
+    prev = snapshot(start, carry, mesh) if health is not None else None
     prev_counters = carry_counters(carry) if tele is not None else None
     s = start
     while s < t_steps:
@@ -387,7 +397,7 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
                       counters=counters, delta=delta)
             prev_counters = counters
         if health is not None:
-            now = snapshot(s + k, carry)
+            now = snapshot(s + k, carry, mesh)
             try:
                 check_chunk(prev, now, health, n=n, dt_ms=dt_ms)
             except SimulationHealthError as e:

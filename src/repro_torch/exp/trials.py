@@ -18,8 +18,9 @@ The synaptic state and the stimulus are shared by the lanes; each lane
 has its own PRNG stream.  Both runners read nothing back to the host
 while they run, unless :func:`run_trials` is supervised
 (``chunk_steps``, through :func:`repro_torch.core.health.run_chunked`).
-The multi-device path (``emulate=False``, ``mesh``) is not ported:
-asking for it raises ``NotImplementedError``.
+:func:`run_dist_trials` also runs on the multi-process path
+(``emulate=False`` or a ``mesh``): the lanes lie inside each rank's
+partition, as on the emulated path.
 """
 
 from __future__ import annotations
@@ -168,17 +169,17 @@ def run_dist_trials(
     partitionable: bool = True,
 ) -> DistTrialResult:
     """Distributed counterpart of :func:`run_trials`: the partitions
-    emulated on one device, each running every lane of the seed batch,
-    bitwise equal to a loop of
-    :func:`repro_torch.core.simulate_distributed` over the same seeds.
-    ``d`` is a :class:`repro_torch.core.dcsr.DCSR`, ``cfg`` a
+    emulated on one device, or one a process (``emulate=False`` or a
+    ``mesh``, as :func:`repro_torch.core.simulate_distributed` takes
+    them), each running every lane of the seed batch, bitwise equal to a
+    loop of :func:`repro_torch.core.simulate_distributed` over the same
+    seeds.  ``d`` is a :class:`repro_torch.core.dcsr.DCSR`, ``cfg`` a
     :class:`repro_torch.core.distributed.DistConfig`."""
-    from repro_torch.core.distributed import (_assemble, make_core_mesh,
+    from repro_torch.core.distributed import (_assemble, _mesh_for,
                                               run_partitioned)
-    if not emulate or mesh is not None:
-        make_core_mesh(d.n_parts)
+    mesh = _mesh_for(d, emulate, mesh, device)
     seeds = _seed_tuple(seeds)
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     # keys[p, b] = what simulate_distributed(seed=seeds[b]) hands part p
     keys = torch.stack(
         [prng.split(prng.PRNGKey(s, device=device), d.n_parts,
@@ -186,7 +187,7 @@ def run_dist_trials(
         dim=1)                                           # [P, B, 2]
     carries, records, owner = run_partitioned(
         d, cfg, t_steps, keys, sugar_neurons, stimulus, probes, device,
-        partitionable)
+        partitionable, mesh=mesh)
     counts, dropped, state, recs, stats = _assemble(d, carries, records,
                                                     owner)
     return DistTrialResult(counts=counts, dropped=dropped, state=state,

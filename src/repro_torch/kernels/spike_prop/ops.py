@@ -163,42 +163,46 @@ class ShardedBlockedSynapses:
         return int((self.blk_id < self.n_sb).sum())
 
 
-def build_blocked_sharded(d, device=None) -> ShardedBlockedSynapses:
+def build_blocked_sharded(d, device=None, parts=None
+                          ) -> ShardedBlockedSynapses:
     """The stacked per-partition stores of a DCSR snapshot (weights as
     ``build_dcsr`` partitioned and quantized them) on ``device`` (default:
-    the CUDA device).  Every partition's tile layout is found first, then
-    the int16 store of all partitions is allocated once at the widest E
-    and each partition's weights are scattered into its slab: nothing is
-    stacked, so the device never holds a second copy (38.97 GB at full
-    FlyWire with P = 12).  Raises ``ValueError`` unless the weights are
+    the CUDA device); with ``parts``, only those partitions' slabs, on the
+    leading axis in that order (a rank of the multi-process path builds
+    its own: 3.25 GB of the 38.97 GB at full FlyWire with P = 12).  Every
+    partition's tile layout is found first, then the int16 store is
+    allocated once at the widest E and each partition's weights are
+    scattered into its slab: nothing is stacked, so the device never
+    holds a second copy.  Raises ``ValueError`` unless the weights are
     integers within int16 and every row is ascending with its pads last
     (``check_row_order``)."""
     from repro_torch.core.engine import resolve_device
     device = resolve_device(device)
     P_, U = d.n_parts, d.part_size
+    parts = list(range(P_)) if parts is None else [int(p) for p in parts]
     with obs.span("build", what="tile_store_sharded"):
         n_glob = P_ * U
         n_tb = (U + TGT_BLK - 1) // TGT_BLK
         n_sb = (n_glob + SRC_BLK - 1) // SRC_BLK
         valid = d.syn_src < n_glob
-        _check_weights(d.syn_w[valid])
+        _check_weights(d.syn_w[parts][valid[parts]])
         coo = []
-        for p in range(P_):
+        for p in parts:
             tgt = d.syn_tgt_local[p][valid[p]].astype(np.int64)
             src = d.syn_src[p][valid[p]].astype(np.int64)
             blk, slot = _tile_slots(tgt, src, n_tb, n_sb)
             coo.append((tgt, src, slot, blk))
         E = max(blk.shape[1] for *_, blk in coo)
-        blk_id = np.full((P_, n_tb, E), n_sb, dtype=np.int32)
-        for p, (*_, blk) in enumerate(coo):
-            blk_id[p, :, :blk.shape[1]] = blk
+        blk_id = np.full((len(parts), n_tb, E), n_sb, dtype=np.int32)
+        for i, (*_, blk) in enumerate(coo):
+            blk_id[i, :, :blk.shape[1]] = blk
         check_row_order(blk_id, n_sb)
-        weights = torch.zeros((P_, n_tb, E, SRC_BLK, TGT_BLK),
+        weights = torch.zeros((len(parts), n_tb, E, SRC_BLK, TGT_BLK),
                               dtype=torch.int16, device=device)
-        for p, (tgt, src, slot, _) in enumerate(coo):
-            _scatter_tiles(weights[p], tgt, src, slot, d.syn_w[p][valid[p]])
+        for i, (p, (tgt, src, slot, _)) in enumerate(zip(parts, coo)):
+            _scatter_tiles(weights[i], tgt, src, slot, d.syn_w[p][valid[p]])
         stored = int((blk_id < n_sb).sum())
-        occ = int(valid.sum()) / max(1, stored * TGT_BLK * SRC_BLK)
+        occ = int(valid[parts].sum()) / max(1, stored * TGT_BLK * SRC_BLK)
         return ShardedBlockedSynapses(
             blk_id=torch.from_numpy(blk_id).to(device), weights=weights,
             n_tb=n_tb, n_sb=n_sb, occupancy=float(occ))

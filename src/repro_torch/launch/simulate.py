@@ -5,22 +5,29 @@
     python -m repro_torch.launch.simulate --scale full --fixed-point \
         --engine blocked_fused --t-ms 100 --chunk-steps 250 --digest
     python -m repro_torch.launch.simulate --distributed --emulate --cores 4
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.simulate --distributed --cores 4
     python -m repro_torch.launch.simulate --scale smoke --device cpu
 
 Counterpart of ``repro/launch/simulate.py``, with every flag of it and the
 same meaning, and the same ``[simulate] ...`` lines (``digest`` included:
-for the same flags the port prints the reference's digest).  One flag
-more: ``--device`` (default ``cuda``, which raises without a card; ``cpu``
-runs the kernels' plain PyTorch versions), where the reference reads
-``JAX_PLATFORMS``.
+for the same flags the port prints the reference's digest).  Two flags
+more, where the reference reads ``JAX_PLATFORMS``: ``--device`` (default
+``cuda``, which raises without a card; ``cpu`` runs the kernels' plain
+PyTorch versions) and ``--dist-backend`` (``nccl``, the default, one GPU
+a rank; ``gloo``, which can put several ranks on one card or on the
+CPU).
 
 --scenario selects a registered stimulus scenario
 (:mod:`repro_torch.exp.scenarios`); --trials > 1 runs a batch of seeds
 as the lanes of one run and reports trial-averaged rates (on the
 partitioned path too).  --distributed partitions with the paper's greedy
 capacity scheme and runs the partitioned simulator with the same
-stimulus, its partitions emulated on one device (--emulate, required:
-the one-partition-per-GPU path is not ported); --dist-scheme selects the
+stimulus: with --emulate its partitions one after another on one device;
+without it one partition a process, under ``torchrun`` (which sets
+``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``; --cores must equal the world
+size), every rank building the same partitioning and only rank 0
+printing, its digest the emulated run's; --dist-scheme selects the
 exchange scheme (bitmap | event | blocked).  The supervision flags
 (--chunk-steps, --checkpoint-dir, --resume, --health, --max-drop-rate,
 --inject-fail-at-chunk) drive :mod:`repro_torch.core.health`;
@@ -40,6 +47,8 @@ import argparse
 import contextlib
 import dataclasses
 import hashlib
+import io
+import os
 import time
 
 import numpy as np
@@ -53,7 +62,9 @@ from repro_torch.core import (SimConfig, available_engines,
                               simulate, spike_rates_hz,
                               synthetic_flywire_cached)
 from repro_torch.core.compress import CoreBudget
-from repro_torch.core.distributed import DistConfig, simulate_distributed
+from repro_torch.core.distributed import (BACKENDS, DistConfig,
+                                          make_core_mesh,
+                                          simulate_distributed)
 from repro_torch.core.health import HealthConfig
 from repro_torch.core.partition import caps_from_budget
 from repro_torch.exp import (ProbeSpec, available_scenarios, build_scenario,
@@ -83,7 +94,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--distributed", action="store_true")
     ap.add_argument("--emulate", action="store_true",
                     help="run the partitions one after another on one "
-                         "device (required with --distributed)")
+                         "device (without it --distributed runs one "
+                         "partition a process, under torchrun)")
     ap.add_argument("--cores", type=int, default=4)
     ap.add_argument("--dist-scheme", default="event",
                     choices=sorted(set(available_schemes()) - {"local"}))
@@ -117,6 +129,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="device of the run (default cuda, which needs a "
                          "card; cpu runs the kernels' plain versions)")
+    ap.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
+                    help="torch.distributed backend of --distributed "
+                         "without --emulate: nccl (one GPU a rank) or gloo "
+                         "(several ranks a card, or the CPU)")
     return ap
 
 
@@ -132,19 +148,40 @@ def main(argv=None, *, async_checkpoint: bool = False) -> None:
                                           and args.checkpoint_dir):
         ap.error("--inject-fail-at-chunk requires --chunk-steps and "
                  "--checkpoint-dir")
+    mesh, owned = None, False
     if args.distributed and not args.emulate:
-        ap.error("--distributed needs --emulate: the multi-device path "
-                 "(one partition per GPU over torch.distributed) is not "
-                 "ported")
-    device = (resolve_device() if args.device == "cuda"
-              else torch.device(args.device))
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            ap.error("--distributed without --emulate runs the multi-device "
+                     "path, one process a partition: launch it under "
+                     "torchrun (python -m torch.distributed.run "
+                     "--nproc-per-node P ...)")
+        if int(os.environ["WORLD_SIZE"]) != args.cores:
+            ap.error(f"--cores {args.cores} must equal the world size "
+                     f"{os.environ['WORLD_SIZE']}")
+        owned = not torch.distributed.is_initialized()
+        mesh = make_core_mesh(
+            args.cores, None if args.device == "cuda"
+            else [args.device] * args.cores, backend=args.dist_backend)
+        device = mesh.device
+    else:
+        device = (resolve_device() if args.device == "cuda"
+                  else torch.device(args.device))
+    lead = mesh is None or mesh.rank == 0
 
-    with contextlib.ExitStack() as stack:
-        if args.telemetry:
-            stack.enter_context(obs.telemetry(args.telemetry))
-        stack.enter_context(obs.profile_trace(args.profile))
-        _run(args, supervised, device, async_checkpoint)
-    if args.telemetry:
+    try:
+        with contextlib.ExitStack() as stack:
+            if not lead:
+                # only rank 0 prints, streams telemetry and writes a profile
+                stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+            if args.telemetry and lead:
+                stack.enter_context(obs.telemetry(args.telemetry))
+            stack.enter_context(obs.profile_trace(args.profile if lead
+                                                  else None))
+            _run(args, supervised, device, async_checkpoint, mesh)
+    finally:
+        if owned:
+            torch.distributed.destroy_process_group()
+    if args.telemetry and lead:
         print(f"[simulate] telemetry stream: {args.telemetry} "
               f"(python -m repro_torch.obs.report {args.telemetry})")
 
@@ -168,7 +205,7 @@ def _host(x) -> np.ndarray:
 
 
 def _run(args, supervised: bool, device: torch.device,
-         async_checkpoint: bool):
+         async_checkpoint: bool, mesh=None):
     fw = {"smoke": SMOKE, "bench": dataclasses.replace(
         SMOKE, n_neurons=20_000, target_synapses=600_000, t_sim_ms=100.0),
         "full": (CONFIG if args.dt == 0.1 else CONFIG_1MS)}[args.scale]
@@ -223,14 +260,15 @@ def _run(args, supervised: bool, device: torch.device,
         raster = None
         if args.trials > 1:
             res = run_dist_trials(d, dcfg, t_steps, seeds=args.trials,
-                                  emulate=True, stimulus=stim, device=device)
+                                  emulate=mesh is None, stimulus=stim,
+                                  device=device, mesh=mesh)
             mean_counts = _host(res.counts).astype(np.float64).mean(axis=0)
             dropped = int(_host(res.dropped).sum())
         else:
             res = simulate_distributed(d, dcfg, t_steps, seed=0,
-                                       emulate=True, stimulus=stim,
+                                       emulate=mesh is None, stimulus=stim,
                                        probes=probes, device=device,
-                                       **chunk_kw)
+                                       mesh=mesh, **chunk_kw)
             mean_counts = _host(res.counts).astype(np.float64)
             dropped = res.dropped
             raster = res.raster

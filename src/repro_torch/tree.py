@@ -2,9 +2,9 @@
 
 The reference's states, stimuli and carries are JAX pytrees, and its
 partitioned runner maps over their leaves.  Here they are frozen
-dataclasses, NamedTuples and tuples of tensors; :func:`map_tensors`
-rebuilds such an object with ``fn`` applied to every tensor it holds
-(other values kept).
+dataclasses, NamedTuples, tuples, lists and dicts of tensors;
+:func:`map_tensors` rebuilds such an object with ``fn`` applied to every
+tensor it holds, in a fixed order (other values kept).
 """
 
 from __future__ import annotations
@@ -19,8 +19,10 @@ def map_tensors(fn, x):
         return fn(x)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(map_tensors(fn, v) for v in x))
-    if isinstance(x, tuple):
-        return tuple(map_tensors(fn, v) for v in x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(map_tensors(fn, v) for v in x)
+    if isinstance(x, dict):
+        return {k: map_tensors(fn, v) for k, v in x.items()}
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return dataclasses.replace(x, **{
             f.name: map_tensors(fn, getattr(x, f.name))

@@ -796,3 +796,88 @@ def test_faulty_blocked_recovered_on_the_card(cuda, tmp_path):
     assert torch.equal(got.raster, clean.raster)
     assert got.dropped == clean.dropped
     assert all(torch.equal(x, y) for x, y in zip(got.state, clean.state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,kw", [("dense", {}), ("ell", {}),
+                                       ("ell", dict(ell_width_cap=16)),
+                                       ("binned", {})],
+                         ids=lambda x: str(x))
+def test_exact_engines_on_the_card(cuda, engine, kw):
+    """Tolerance 0: ``deliver`` on the card equals the CPU's (the ``ell``
+    rows over the cap summed in the same order), and a 200-step run of
+    ``dense``, uncapped ``ell`` and ``binned`` equals ``csr`` in counts,
+    state, dropped and raster; on a batch of 3 lanes too."""
+    c = synthetic_flywire(2000, target_synapses=60_000, seed=0)
+    cfg = SimConfig(engine=engine, fixed_point=True, quantize_bits=9,
+                    poisson_to_v=False, **kw)
+    from repro_torch.core.engines import get_engine
+    eng = get_engine(engine)
+    rng = np.random.default_rng(4)
+    spk = torch.from_numpy(np.stack([rng.random(c.n) < p
+                                     for p in (0.01, 0.2, 1.0)]))
+    on_card = eng.deliver(eng.build(c, cfg, cuda), spk.to(cuda), cfg)[0]
+    on_cpu = eng.deliver(eng.build(c, cfg, "cpu"), spk, cfg)[0]
+    assert torch.equal(on_card.cpu().view(torch.int32),
+                       on_cpu.view(torch.int32))
+    if kw:
+        return                       # capped ell samples: not held to csr
+    stim = build_scenario("sugar_feeding", c, cfg, background_hz=20.0)
+    probes = ProbeSpec(raster=True)
+    csr = dataclasses.replace(cfg, engine="csr")
+    want = simulate(c, csr, 200, seed=3, stimulus=stim, probes=probes,
+                    device=cuda)
+    got = simulate(c, cfg, 200, seed=3, stimulus=stim, probes=probes,
+                   device=cuda)
+    assert int(want.counts.sum()) > 0
+    for a, b in zip((want.counts, want.dropped, want.raster, *want.state),
+                    (got.counts, got.dropped, got.raster, *got.state)):
+        assert torch.equal(a, b)
+    from repro_torch.exp import run_trials
+    lanes = run_trials(c, cfg, 60, seeds=[3, 4, 5], stimulus=stim,
+                       device=cuda)
+    ref = run_trials(c, csr, 60, seeds=[3, 4, 5], stimulus=stim,
+                     device=cuda)
+    assert torch.equal(lanes.counts, ref.counts)
+    assert all(torch.equal(a, b) for a, b in zip(lanes.state, ref.state))
+
+
+@pytest.mark.cuda
+def test_core_mesh_nccl_world_one_equals_simulate(cuda, tmp_path):
+    """One rank under nccl (world size 1): the P = 1 partitioning through
+    ``bitmap`` and the fused ``blocked`` scheme on a deterministic drive
+    (``step_response``) equals ``simulate()`` with ``csr``, tolerance 0
+    (a Poisson drive would differ: the partition's key is split from the
+    seed)."""
+    import torch.distributed as dist
+    from repro_torch.core import (DistConfig, build_dcsr, even_partition,
+                                  simulate_distributed)
+    from repro_torch.core.distributed import make_core_mesh
+    c = synthetic_flywire(2000, target_synapses=60_000, seed=0)
+    cfg = SimConfig(engine="csr", fixed_point=True, quantize_bits=9,
+                    poisson_to_v=False)
+    stim = build_scenario("step_response", c, cfg)
+    probes = ProbeSpec(raster=True)
+    d = build_dcsr(c, even_partition(c, 1), quantize_bits=9)
+    one = simulate(c, cfg, 300, seed=0, stimulus=stim, probes=probes,
+                   device=cuda)
+    assert int(one.counts.sum()) > 0
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_core_mesh(1, backend="nccl")
+        assert mesh.device.type == "cuda" and mesh.backend == "nccl"
+        for scheme, engine in (("bitmap", "csr"),
+                               ("blocked", "blocked_fused")):
+            res = simulate_distributed(
+                d, DistConfig(sim=dataclasses.replace(cfg, engine=engine),
+                              scheme=scheme),
+                300, seed=0, stimulus=stim, probes=probes, mesh=mesh)
+            assert torch.equal(res.counts, one.counts.long())
+            assert torch.equal(res.raster, one.raster)
+            assert all(torch.equal(a, b) for a, b in zip(res.state,
+                                                         one.state))
+        with pytest.raises(ValueError, match="not 'gloo'"):
+            make_core_mesh(1, backend="gloo")
+    finally:
+        dist.destroy_process_group()

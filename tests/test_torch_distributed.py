@@ -209,9 +209,11 @@ def test_starved_capacity_drops_match(fused_net, scheme):
 def test_unported_paths_raise(fused_net):
     _, pd = fused_net[4]
     cfg = DistConfig(sim=SimConfig(), scheme="event")
-    with pytest.raises(NotImplementedError):
+    # the multi-process path is ported (tests/test_torch_multiprocess.py);
+    # without a process group (no torchrun, no init_method) it refuses
+    with pytest.raises(RuntimeError, match="no process group"):
         simulate_distributed(pd, cfg, 3, device="cpu", emulate=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no process group"):
         distributed.make_core_mesh(4)
     # supervision is ported (tests/test_torch_health.py); a chunk size
     # below 1 is refused as the reference refuses it

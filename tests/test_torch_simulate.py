@@ -205,8 +205,10 @@ def test_unported_features_raise(net):
     # below 1 is refused as the reference refuses it
     with pytest.raises(ValueError, match="positive"):
         simulate(pc, cfg, 5, device="cpu", chunk_steps=-1)
-    with pytest.raises(NotImplementedError):
-        simulate(pc, SimConfig(engine="dense"), 5, device="cpu")
+    # the exact engines are ported (tests/test_torch_exact_engines.py)
+    assert torch.equal(
+        simulate(pc, SimConfig(engine="dense"), 5, device="cpu").counts,
+        simulate(pc, cfg, 5, device="cpu").counts)
     with pytest.raises(ValueError):
         simulate(pc, SimConfig(engine="nope"), 5, device="cpu")
     from repro_torch.core.exchange import FaultyExchange, get_scheme

@@ -228,9 +228,11 @@ def test_unported_and_bad_arguments(net):
         run_trials(pc, SimConfig(), 3, seeds=2, chunk_steps=-1, device="cpu")
     d = build_dcsr(pc, even_partition(pc, 2))
     dcfg = DistConfig(sim=SimConfig(), scheme="event")
-    with pytest.raises(NotImplementedError):
+    # the multi-process path is ported (tests/test_torch_multiprocess.py):
+    # it needs a process group, and a mesh is a CoreMesh
+    with pytest.raises(RuntimeError, match="no process group"):
         run_dist_trials(d, dcfg, 3, seeds=2, emulate=False, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="CoreMesh"):
         run_dist_trials(d, dcfg, 3, seeds=2, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
