@@ -72,7 +72,16 @@ kernel against its plain PyTorch version, then drives these paths:
   float32 parameters, random weights from a seed) with
   ``attention_impl="pallas"``, the flash attention kernel, answering 8
   requests; its tokens are held against a plain-attention run of the same
-  weights.
+  weights;
+* LM training (``repro_torch.train``) at qwen2.5-14b's full width, cut to
+  4 layers (2.658B float32 parameters, chunked attention, remat, no
+  TF32): 10 AdamW steps of 4 x 512 synthetic tokens, whose loss must
+  fall; 4 microbatches against one batch; ``run_with_recovery`` from a
+  checkpoint at step 5 after a failure injected at step 7, bitwise equal
+  to the uninterrupted run; 2 steps profiled; the trained weights served
+  through ``ServingEngine`` with the flash kernel and with chunked
+  attention (the same tokens); and ``python -m repro_torch.launch.train
+  --smoke`` as a program, recovering from ``--fail-at 30``.
 
 Both delivery kernels are also timed on the full FlyWire store with
 0.1%, 1% and every neuron spiking, beside the ``torch.sparse`` CSR
@@ -82,7 +91,8 @@ product with the dense [n, 10] spike matrix.  Every phase raises on
 failure; nothing is caught.  The last lines are a JSON line of the
 supervision and scenario numbers, a JSON line of the serving and
 resilience numbers, a JSON line of the exact engines' and the 12-rank
-path's numbers, a JSON line of those activity cases
+path's numbers, a JSON line of the training numbers, a JSON line of
+those activity cases
 (``background_storm``'s spikes among them), a JSON line of kernel
 measurements, the card's name and power limit, and ``{"ok": true,
 "device": ...}``.
@@ -95,6 +105,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -176,6 +187,15 @@ FLASH_ATOL = 2e-4              # the JAX package's tolerance for its kernel
 # hundred times the logit difference the two impls show on one prefill.
 LOGIT_TOL = 1e-3
 LM_SEED = 0
+TRAIN_LAYERS = 4               # the depth cut: 2.658B parameters, 42.5 GB
+TRAIN_BATCH, TRAIN_SEQ = 4, 512  # with gradients and AdamW moments
+T_TRAIN = 10                   # AdamW steps of the full-width run
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+TRAIN_CKPT_AT, TRAIN_FAIL_AT = 5, 7
+TRAIN_PROFILE_STEPS = 2
+MB_LOSS_RTOL, MB_PARAM_ATOL = 1e-4, 2e-3  # tests/test_train.py's tolerance
+TRAIN_CLI = ["--arch", "qwen2.5-14b", "--smoke", "--steps", "60",
+             "--ckpt-every", "20", "--fail-at", "30"]
 DEVICE = "cuda"
 
 
@@ -1704,6 +1724,36 @@ def top2_gap(params, cfg, tokens) -> float:
     return float(top[0] - top[1])
 
 
+def compare_served(params, cfg, plain_cfg, toks, plain_toks):
+    """The flash run's tokens against the plain run's: equal, or apart
+    only after a near-tie (top-2 gap <= LOGIT_TOL).  Also the logits of
+    one prefill under both impls, which must agree within LOGIT_TOL.
+    Returns (their largest difference, the requests that differ)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import prefill
+    reqs = {r.rid: r for r in lm_requests(cfg.vocab)}
+    r0 = reqs[0]
+    t = torch.from_numpy(r0.prompt.astype(np.int64))[None].to(DEVICE)
+    la, _ = prefill(params, {"tokens": t}, cfg, len(r0.prompt))
+    lb, _ = prefill(params, {"tokens": t}, plain_cfg, len(r0.prompt))
+    d_logit = max_abs_err(la, lb)
+    check(d_logit <= LOGIT_TOL, f"prefill logits differ by {d_logit}")
+    differing = 0
+    for rid, out in toks.items():
+        ref = plain_toks[rid]
+        if out == ref:
+            continue
+        differing += 1
+        j = next(i for i, (x, y) in enumerate(zip(out, ref)) if x != y)
+        gap = top2_gap(params, plain_cfg, list(reqs[rid].prompt) + out[:j])
+        print(f"request {rid}: tokens differ from step {j} on; top-2 "
+              f"logit gap there {gap:.3e}", flush=True)
+        check(gap <= LOGIT_TOL, f"request {rid}: token {j} differs "
+              f"with a top-2 gap of {gap} > {LOGIT_TOL}")
+    return d_logit, differing
+
+
 @phase("qwen2.5-14b serving through the flash kernel")
 def phase_lm(smi):
     """The LM path at the full published width and depth: init, serve the
@@ -1743,26 +1793,8 @@ def phase_lm(smi):
         plain_toks, plain_stats, plain_secs, _ = serve(params, plain_cfg,
                                                        "serve (plain)")
         reqs = {r.rid: r for r in lm_requests(cfg.vocab)}
-        # the logits of one prefill under both impls
-        r0 = reqs[0]
-        t = torch.from_numpy(r0.prompt.astype(np.int64))[None].to(DEVICE)
-        la, _ = prefill(params, {"tokens": t}, cfg, len(r0.prompt))
-        lb, _ = prefill(params, {"tokens": t}, plain_cfg, len(r0.prompt))
-        d_logit = max_abs_err(la, lb)
-        check(d_logit <= LOGIT_TOL, f"prefill logits differ by {d_logit}")
-        differing = 0
-        for rid, out in toks.items():
-            ref = plain_toks[rid]
-            if out == ref:
-                continue
-            differing += 1
-            j = next(i for i, (x, y) in enumerate(zip(out, ref)) if x != y)
-            gap = top2_gap(params, plain_cfg,
-                           list(reqs[rid].prompt) + out[:j])
-            print(f"request {rid}: tokens differ from step {j} on; top-2 "
-                  f"logit gap there {gap:.3e}", flush=True)
-            check(gap <= LOGIT_TOL, f"request {rid}: token {j} differs "
-                  f"with a top-2 gap of {gap} > {LOGIT_TOL}")
+        d_logit, differing = compare_served(params, cfg, plain_cfg, toks,
+                                            plain_toks)
         # one prefill (the longest prompt) and one 4-slot decode step at
         # the run's shapes, profiled: where the time goes
         longest = max(reqs.values(), key=lambda r: len(r.prompt))
@@ -1792,6 +1824,229 @@ def phase_lm(smi):
     del params
     torch.cuda.empty_cache()
     return n_flash
+
+
+def train_flops(params, cfg, batch, seq) -> float:
+    """FLOPs of one training step: 6 x the parameters that enter a matrix
+    product (every 2-D weight but the embedding table, which is gathered)
+    x the tokens, plus the attention products over the causal pairs
+    (forward and backward, 3 x the forward's 4 B H D per pair).  Remat's
+    second forward pass is not counted."""
+    n = sum(p.numel() for k, p in params.named_parameters()
+            if p.dim() == 2 and k != "embed")
+    pairs = seq * (seq + 1) // 2
+    attn = 12 * batch * cfg.n_heads * cfg.d_head * pairs * cfg.n_layers
+    return 6.0 * n * batch * seq + attn
+
+
+def leaf_sums(tree) -> dict:
+    """Per-leaf float64 sums of a name -> tensor dict (moments kept as a
+    digest where a second copy does not fit)."""
+    return {k: float(t.double().sum()) for k, t in tree.items()}
+
+
+@phase("qwen2.5-14b training at full width")
+def phase_train(smi):
+    """The LM training path at qwen2.5-14b's full width, cut to
+    TRAIN_LAYERS layers (float32, chunked attention, remat, no TF32),
+    weights from init_params(LM_SEED) on the card, SyntheticLM batches of
+    TRAIN_BATCH x TRAIN_SEQ tokens, AdamW with a cosine schedule:
+
+    * one step with 4 microbatches against one without, from the same
+      weights: loss rtol MB_LOSS_RTOL, parameters atol MB_PARAM_ATOL;
+    * T_TRAIN steps: every loss finite, the last below the first; timed;
+    * the same run under run_with_recovery, a checkpoint after step
+      TRAIN_CKPT_AT and a failure injected at TRAIN_FAIL_AT: the restarted
+      run's parameters bitwise the uninterrupted run's, its moments'
+      per-leaf sums equal;
+    * TRAIN_PROFILE_STEPS more steps profiled (device busy share);
+    * the trained weights served through ServingEngine with the flash
+      kernel and with chunked attention (the same tokens; the kernel's
+      launches counted as in phase_lm);
+    * the training CLI as a program, --fail-at 30 recovered at step 20.
+    Returns (the flash launches of the serving check, the numbers)."""
+    import dataclasses as dc
+    import shutil
+
+    import torch
+    from repro_torch.configs import qwen2_5_14b
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import count_params, init_params
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import (FaultConfig, init_train_state,
+                                   make_train_step, restore_checkpoint,
+                                   save_checkpoint, simulate_failures)
+    from repro_torch.train.fault import run_with_recovery
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dc.replace(qwen2_5_14b.CONFIG, n_layers=TRAIN_LAYERS)
+    check(cfg.attention_impl == "chunked" and cfg.remat
+          and cfg.param_dtype == torch.float32, "the training config")
+    n_params = count_params(cfg)
+    ds = SyntheticLM(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                     global_batch=TRAIN_BATCH, seed=LM_SEED)
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, TRAIN_WARMUP, T_TRAIN))
+    step = make_train_step(cfg, opt)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"layers": TRAIN_LAYERS, "params": n_params, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ}
+
+    def fresh():
+        return init_train_state(init_params(LM_SEED, cfg), opt)
+
+    # microbatching: one step of 4 microbatches against one of the batch
+    batch0 = ds.batch_at(0)
+    s1, m1 = step(fresh(), batch0)
+    p1 = s1.params
+    del s1
+    s4, m4 = make_train_step(cfg, opt, microbatches=4)(fresh(), batch0)
+    l1, l4 = float(m1["loss"]), float(m4["loss"])
+    check(abs(l4 - l1) <= MB_LOSS_RTOL * abs(l1),
+          f"microbatched loss {l4} != {l1}")
+    mb_err = max(max_abs_err(a.detach(), b.detach()) for a, b in
+                 zip(p1.parameters(), s4.params.parameters()))
+    check(mb_err <= MB_PARAM_ATOL, f"microbatched params differ by {mb_err}")
+    print(f"{cfg.name} x {TRAIN_LAYERS} layers ({n_params} parameters): "
+          f"4 microbatches against one batch: loss {l4} against {l1}, "
+          f"params |diff| {mb_err:.3e}", flush=True)
+    out["microbatch"] = {"loss_1": l1, "loss_4": l4, "params_max_abs_err":
+                         mb_err}
+    del p1, s4
+
+    # the uninterrupted run, timed step by step
+    state = fresh()
+    losses, ms = [], []
+    for i in range(T_TRAIN):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, ds.batch_at(i))
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    want_params = state.params
+    want_m, want_v = leaf_sums(state.opt.m), leaf_sums(state.opt.v)
+    del state
+
+    # the same run under run_with_recovery
+    ckpt = work_dir("train")
+    faults = FaultConfig(fail_at_steps=(TRAIN_FAIL_AT,))
+    attempts, final, io_s = [], {}, {}
+
+    def attempt(resume):
+        attempts.append(resume)
+        state, start = fresh(), 0
+        if resume is not None:
+            t0 = time.perf_counter()
+            state, _ = restore_checkpoint(ckpt, resume, state)
+            torch.cuda.synchronize()
+            io_s["restore"] = time.perf_counter() - t0
+            shutil.rmtree(ckpt)
+            start = resume
+        for i in range(start, T_TRAIN):
+            if resume is None:          # the failure strikes once
+                simulate_failures(i, faults)
+            state, _ = step(state, ds.batch_at(i))
+            if i + 1 == TRAIN_CKPT_AT:
+                t0 = time.perf_counter()
+                save_checkpoint(ckpt, TRAIN_CKPT_AT, state)
+                io_s["save"] = time.perf_counter() - t0
+        final["state"] = state
+        return T_TRAIN
+
+    t0 = time.perf_counter()
+    run_with_recovery(attempt, max_restarts=1, checkpoint_dir=ckpt)
+    recovery_s = time.perf_counter() - t0
+    got = final.pop("state")
+    check(attempts == [None, TRAIN_CKPT_AT], f"attempts {attempts}")
+    check(equal_all(list(got.params.parameters()),
+                    list(want_params.parameters())),
+          "the recovered run's parameters differ from the uninterrupted run")
+    check(leaf_sums(got.opt.m) == want_m and leaf_sums(got.opt.v) == want_v,
+          "the recovered run's moments differ from the uninterrupted run")
+    del want_params
+    print(f"run_with_recovery: failure at step {TRAIN_FAIL_AT}, resumed from "
+          f"the step-{TRAIN_CKPT_AT} checkpoint ({3 * n_params * 4 / 1e9:.3f}"
+          f" GB: save {io_s['save']:.3f} s, restore {io_s['restore']:.3f} s),"
+          f" {recovery_s:.3f} s in all; parameters bitwise the "
+          f"uninterrupted run's, moments' sums equal", flush=True)
+    out["recovery"] = {"s": recovery_s, "save_s": io_s["save"],
+                       "restore_s": io_s["restore"], "bitwise": True}
+
+    # where the time goes: profiled steps of the recovered state
+    batch = ds.batch_at(T_TRAIN)
+    holder = {"state": got}
+    del got
+
+    def one_step():
+        holder["state"], m = step(holder["state"], batch)
+        return m
+    wall_ms, kernels = device_profile(one_step, TRAIN_PROFILE_STEPS)
+    print_breakdown(f"training step ({tokens} tokens)", wall_ms, kernels,
+                    top=10)
+    busy = (None if kernels is None
+            else sum(k_ms for k_ms, _ in kernels.values()) / wall_ms)
+    params = holder.pop("state").params
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = train_flops(params, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    step_ms = sum(ms[1:]) / (len(ms) - 1)
+    bound_ms = flops / F32_FLOP_PER_S * 1e3
+    busy_text = "not measured" if busy is None else f"{100 * busy:.2f}%"
+    print(f"training: losses {losses}; ms per step {[round(x, 3) for x in ms]}"
+          f" (first {ms[0]:.3f}, mean of the rest {step_ms:.3f}); "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s; peak device memory "
+          f"{peak:.3f} GB; {flops:.4e} FLOP a step, {bound_ms:.3f} ms at "
+          f"67 TFLOP/s float32 = {100 * bound_ms / step_ms:.2f}% of the "
+          f"step; device busy {busy_text} over {TRAIN_PROFILE_STEPS} "
+          f"profiled steps; card {smi}", flush=True)
+    out.update({"losses": losses, "ms_per_step": step_ms, "first_ms": ms[0],
+                "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak,
+                "flop_per_step": flops, "flop_bound_ms": bound_ms,
+                "flop_share": bound_ms / step_ms, "busy_share": busy,
+                "profiled_wall_ms": wall_ms})
+
+    # the trained weights served with the flash kernel and without
+    flash_cfg = dc.replace(cfg, attention_impl="pallas")
+    with torch.inference_mode():
+        toks, stats, _, launches = serve(params, flash_cfg,
+                                         "serve trained (flash)")
+        n_flash = launches["flash_attention"]["flash_attention"]
+        check(n_flash == cfg.n_layers * stats["admitted"],
+              f"flash kernel launched {n_flash} times for "
+              f"{stats['admitted']} prefills of {cfg.n_layers} layers")
+        plain_toks, _, _, _ = serve(params, cfg, "serve trained (plain)")
+        d_logit, differing = compare_served(params, flash_cfg, cfg, toks,
+                                            plain_toks)
+    print(f"trained weights served: {differing} of {len(toks)} requests "
+          f"differ in tokens; prefill logits |diff| {d_logit:.3e}; flash "
+          f"launches {n_flash}", flush=True)
+    out["serving"] = {"flash_launches": n_flash, "requests_differing":
+                      differing, "prefill_logit_max_abs_err": d_logit}
+    del params
+    torch.cuda.empty_cache()
+
+    # the training CLI as a program: a failure at step 30, resumed at 20
+    here = os.path.dirname(os.path.abspath(__file__))
+    cli_dir = work_dir("train_cli")
+    args = TRAIN_CLI + ["--ckpt-dir", cli_dir, "--device", DEVICE]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *args], cwd=here, capture_output=True, text=True,
+                       env={**os.environ,
+                            "PYTHONPATH": os.path.join(here, "src")},
+                       timeout=600)
+    cli_s = time.perf_counter() - t0
+    lines = r.stdout.splitlines()
+    print(f"$ python -m repro_torch.launch.train {' '.join(args)}: exit "
+          f"{r.returncode}, {cli_s:.3f} s; {lines[-4:]}", flush=True)
+    check(r.returncode == 0, f"the training CLI failed:\n{r.stderr[-3000:]}")
+    check("[train] resumed from step 20" in lines
+          and lines[-1] == "[train] done at step 60",
+          f"the training CLI did not recover: {lines[-6:]}")
+    shutil.rmtree(os.path.join(here, WORK_DIR, "train_cli"))
+    out["cli_s"] = cli_s
+    return n_flash, out
 
 
 def dist_run(d, sim, scheme, t_steps, stim, probes, label):
@@ -3308,6 +3563,7 @@ def main() -> int:
         yard[name] = (ms, plain_ms, bound, lib_ms, err)
         launches[name] = n
     launches["flash_attention"] = phase_lm(smi)
+    train_launches, training = phase_train(smi)
     yard["flash_attention"] = (*phase_flash_yardstick(smi), 0.0)
 
     K, LK, FK = kernel_modules()
@@ -3371,6 +3627,10 @@ def main() -> int:
                 "multiprocess_p12"]["launches"][name]
             kernels[-1]["multiprocess_p12_max_abs_err"] = extra[
                 "multiprocess_p12"]["max_abs_err"][name]
+        if name == "flash_attention":
+            # the trained weights' serving check (4 layers): training
+            # itself never launches it (chunked attention; no backward)
+            kernels[-1]["train_serving_launches"] = train_launches
     check(all(k["launches"] > 0 for k in kernels)
           and all(k["sharded_p12"]["launches"] > 0
                   and k["sharded_p12"]["trials_b3_launches"] > 0
@@ -3403,6 +3663,7 @@ def main() -> int:
     print(json.dumps({"exact_engines": extra["exact_engines"],
                       "multiprocess_p12": extra["multiprocess_p12"],
                       "cli_torchrun_p12_s": cli_torchrun_s}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"activity": activity}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

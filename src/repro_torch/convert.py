@@ -170,6 +170,40 @@ def lm_params_from_jax(params, cfg, device=None):
         tensors(_layer(params["final_norm"])), stack)
 
 
+def lm_tree_to_jax_layout(tree, cfg) -> dict:
+    """The inverse of :func:`lm_params_from_jax`, for any set of tensors
+    shaped as an :class:`repro_torch.models.LMParams`: the module itself,
+    or a dict from its parameter names (``named_parameters()``: ``embed``,
+    ``stack.3.mixer.wq``, ...) to tensors, such as gradients or AdamW
+    moments.  Returns the reference's parameter pytree of numpy arrays:
+    ``embed``, ``lm_head`` (unless tied), ``final_norm`` and ``stack`` with
+    its ``"scan"`` (per pattern position, stacked over the repeats) and
+    ``"tail"`` layers."""
+    from torch import nn
+
+    flat = (dict(tree.named_parameters()) if isinstance(tree, nn.Module)
+            else dict(tree))
+    nested: dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = nested
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t.detach().cpu().numpy()
+    layers = nested.pop("stack")
+    pat = len(cfg.block_pattern)
+    n_rep = cfg.n_layers // pat
+
+    def stacked(trees):
+        if isinstance(trees[0], dict):
+            return {k: stacked([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+    scan = tuple(stacked([layers[str(r * pat + j)] for r in range(n_rep)])
+                 if n_rep else None for j in range(pat))
+    tail = tuple(layers[str(i)] for i in range(n_rep * pat, cfg.n_layers))
+    return {**nested, "stack": {"scan": scan, "tail": tail}}
+
+
 __all__ = ["blocked_from_jax", "carry_from_jax", "connectome_from_jax",
            "csr_from_jax", "dist_arrays_from_jax", "lm_params_from_jax",
-           "sharded_blocked_from_jax"]
+           "lm_tree_to_jax_layout", "sharded_blocked_from_jax"]

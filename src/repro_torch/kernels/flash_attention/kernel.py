@@ -23,7 +23,9 @@ skipped, and a row whose every key is masked comes out as zeros.
 
 The wrapper takes the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device, or raises; ``LAUNCHES`` counts
-launches.
+launches.  Neither is differentiable: the TPU kernel has no backward
+(``jax.grad`` through it raises), so the wrapper refuses operands that
+autograd would differentiate (:func:`refuse_grad`), on either device.
 """
 
 from __future__ import annotations
@@ -63,6 +65,18 @@ def _mask(Sq, Skv, causal, window, device):
     return mask
 
 
+def refuse_grad(q, k, v) -> None:
+    """Raise when autograd would differentiate through the kernel: grad
+    mode on and an operand that requires grad.  The kernel writes into a
+    tensor autograd cannot see, so a gradient through it would be dropped
+    without a word; the reference raises there, and so does the port."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash attention has no backward (nor has the TPU kernel): "
+            "train with attention_impl='chunked', or run under "
+            "torch.no_grad() / torch.inference_mode()")
+
+
 def flash_attention_plain(q, k, v, *, scale, causal, window):
     """Plain PyTorch version of :func:`flash_attention_gqa`: the same
     masks and zero rows, with the scores materialized per kv head group."""
@@ -84,7 +98,9 @@ def flash_attention_plain(q, k, v, *, scale, causal, window):
 def flash_attention_gqa(q, k, v, *, scale: float, causal: bool,
                         window: int | None):
     """q: [B, H, Sq, D], k/v: [B, Hkv, Skv, D], float32, contiguous, with
-    H % Hkv == 0 and D <= 256.  Returns [B, H, Sq, D] float32."""
+    H % Hkv == 0 and D <= 256.  Returns [B, H, Sq, D] float32.  Raises
+    under grad (:func:`refuse_grad`)."""
+    refuse_grad(q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q must be [B, H, Sq, D], k and v [B, Hkv, Skv, D]")
     B, H, Sq, D = q.shape
@@ -117,4 +133,5 @@ def flash_attention_gqa(q, k, v, *, scale: float, causal: bool,
 
 
 __all__ = ["LAUNCHES", "MAX_HEAD_DIM", "SOURCE", "SOURCES",
-           "flash_attention_gqa", "flash_attention_plain", "reset_launches"]
+           "flash_attention_gqa", "flash_attention_plain", "refuse_grad",
+           "reset_launches"]

@@ -10,15 +10,18 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import flash_attention_gqa
+from .kernel import flash_attention_gqa, refuse_grad
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     """q: [B, H, Sq, D]; k, v: [B, Hkv, Skv, D] with H % Hkv == 0 (GQA).
 
     window: sliding-window size (keys within [i-window, i]); None = full.
-    Returns [B, H, Sq, D] in q.dtype.
+    Returns [B, H, Sq, D] in q.dtype.  Not differentiable, as the
+    reference's is not: raises when grad is enabled and an operand
+    requires grad (use ``"chunked"`` attention to train).
     """
+    refuse_grad(q, k, v)
     D = q.shape[-1]
     if scale is None:
         scale = D ** -0.5

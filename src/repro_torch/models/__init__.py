@@ -2,7 +2,7 @@
 of :mod:`repro.models`)."""
 
 from .model import (LMParams, ModelConfig, count_params, decode_step, forward,
-                    init_cache, init_params, prefill)
+                    init_cache, init_params, loss_fn, prefill)
 
 __all__ = ["LMParams", "ModelConfig", "count_params", "decode_step",
-           "forward", "init_cache", "init_params", "prefill"]
+           "forward", "init_cache", "init_params", "loss_fn", "prefill"]

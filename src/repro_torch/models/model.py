@@ -1,18 +1,21 @@
-"""Public model API: config, init, forward, prefill/decode, for the dense
-family.
+"""Public model API: config, init, forward, loss, prefill/decode, for the
+dense family.
 
 Counterpart of ``repro/models/model.py``.  :class:`ModelConfig` has every
 field of the reference's (dtypes are torch dtypes), so a reference config
-carries over unchanged.  Parameters are an :class:`LMParams` module; the
-functions take it as the reference's take its parameter pytree.  Families
-other than ``"dense"`` (MoE, hybrid, SSM, enc-dec, VLM), learned absolute
-positions (whisper's), ``compute_dtype`` and the training loss are not
-ported and raise ``NotImplementedError``.
+carries over unchanged.  Parameters are an :class:`LMParams` module of
+trainable parameters; the functions take it as the reference's take its
+parameter pytree.  Families other than ``"dense"`` (MoE, hybrid, SSM,
+enc-dec, VLM), learned absolute positions (whisper's) and
+``compute_dtype`` are not ported and raise ``NotImplementedError``.
 
 Entry points run on the CUDA device unless given ``device=...``
-(:func:`repro_torch.core.engine.resolve_device`); run them under
+(:func:`repro_torch.core.engine.resolve_device`).  Serve under
 ``torch.inference_mode()`` (:class:`repro_torch.serving.ServingEngine`
-does).
+does): with grad enabled a forward pass records an autograd graph, and
+the flash kernel (``attention_impl="pallas"``) refuses to run, since it
+has no backward.  :func:`loss_fn` is what :mod:`repro_torch.train`
+differentiates.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ class ModelConfig:
     # execution knobs
     attention_impl: str = "chunked"   # chunked | pallas (the flash kernel)
     assoc_scan: bool = False
-    remat: bool = True                # training only; unused here
+    remat: bool = True                # recompute each repeat in backward
     param_dtype: Any = torch.float32
     compute_dtype: Any = None
     subquadratic: bool = False
@@ -94,14 +97,16 @@ class LMParams(nn.Module):
     """The parameters of a dense LM: ``embed [vocab, d]``, ``lm_head
     [d, vocab]`` (None when tied to ``embed``), ``final_norm`` and
     ``stack``, an ``nn.ModuleList`` of
-    :class:`repro_torch.models.transformer.Block`."""
+    :class:`repro_torch.models.transformer.Block`.  Every tensor is a
+    trainable ``nn.Parameter``; ``named_parameters()`` names them
+    (``embed``, ``stack.0.mixer.wq``, ...), and those names key the
+    gradients and optimizer moments of :mod:`repro_torch.train`."""
 
     def __init__(self, embed, lm_head, final_norm: dict,
                  stack: nn.ModuleList):
         super().__init__()
-        frozen = lambda t: nn.Parameter(t, requires_grad=False)  # noqa: E731
-        self.embed = frozen(embed)
-        self.lm_head = None if lm_head is None else frozen(lm_head)
+        self.embed = nn.Parameter(embed)
+        self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
         self.final_norm = tf._pdict(final_norm)
         self.stack = stack
 
@@ -154,6 +159,22 @@ def forward(params: LMParams, batch, cfg: ModelConfig):
     return _final(params, x, cfg), aux
 
 
+def loss_fn(params: LMParams, batch, cfg: ModelConfig, aux_weight=0.01):
+    """Next-token cross entropy (+ MoE aux) of ``batch["tokens"]`` against
+    ``batch["labels"]`` ([B, S]; labels < 0 carry no loss): the mean over
+    the labelled positions of float32 ``logsumexp`` minus the gold logit,
+    plus ``aux_weight * aux``.  A 0-d float32 tensor."""
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["labels"].long()
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    # a masked label may be negative: gather at 0 there, then mask it out
+    gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll + aux_weight * aux
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.float32, device=None):
     """A zero kv cache: a list of ``{"k", "v"}`` ``[B, Hkv, max_len, D]``
@@ -181,4 +202,5 @@ def decode_step(params: LMParams, cache, tokens, pos, cfg: ModelConfig):
 
 
 __all__ = ["LMParams", "ModelConfig", "check_supported", "count_params",
-           "decode_step", "forward", "init_cache", "init_params", "prefill"]
+           "decode_step", "forward", "init_cache", "init_params", "loss_fn",
+           "prefill"]

@@ -5,7 +5,9 @@ Counterpart of ``repro/models/transformer.py`` for blocks of kind
 parameters of each position of ``cfg.block_pattern`` on a leading layer
 axis and runs a ``lax.scan`` over the repeats, plus an unrolled tail;
 here every layer is its own :class:`Block` and a Python loop walks them in
-the same order (layer ``i`` has kind ``pattern[i % len(pattern)]``).
+the same order (layer ``i`` has kind ``pattern[i % len(pattern)]``).  Under
+grad with ``cfg.remat``, each repeat of the pattern is recomputed in the
+backward pass, as the reference's ``jax.checkpoint`` of its scan body.
 Recurrent (``rglru``, ``rwkv``) blocks and MoE feed-forwards are not
 ported and raise ``NotImplementedError``.
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (attention_apply, attention_decode, attention_init,
                      layer_norm, layer_norm_init, mlp_apply, mlp_init,
@@ -24,8 +27,7 @@ KINDS = ("attn", "local")
 
 
 def _pdict(tree: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tree.items()})
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
 
 
 class Block(nn.Module):
@@ -128,12 +130,29 @@ def stack_init(gen, cfg, device=None) -> nn.ModuleList:
 
 
 def stack_apply(stack: nn.ModuleList, x, cfg, *, causal=True, impl=None):
-    """Full-sequence forward through the stack.  Returns (x, aux)."""
+    """Full-sequence forward through the stack.  Returns (x, aux).
+
+    With ``cfg.remat`` and grad enabled, each whole repeat of
+    ``cfg.block_pattern`` runs under ``torch.utils.checkpoint`` (its
+    activations are recomputed in the backward pass), as the reference
+    remats its scanned repeats; the unrolled tail is not rematerialized."""
+    def apply(blocks, h, aux):
+        for blk in blocks:
+            h, _, a = block_apply(blk, h, cfg, causal=causal, impl=impl)
+            aux = aux + a
+        return h, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in stack:
-        x, _, a = block_apply(blk, x, cfg, causal=causal, impl=impl)
-        aux = aux + a
-    return x, aux
+    pat = len(cfg.block_pattern)
+    n_scan = len(stack) // pat * pat
+    remat = cfg.remat and torch.is_grad_enabled()
+    for r0 in range(0, n_scan, pat):
+        blocks = stack[r0:r0 + pat]
+        if remat:
+            x, aux = checkpoint(apply, blocks, x, aux, use_reentrant=False)
+        else:
+            x, aux = apply(blocks, x, aux)
+    return apply(stack[n_scan:], x, aux)
 
 
 def stack_prefill(stack: nn.ModuleList, x, cfg, max_len, *, causal=True,

@@ -1,0 +1,8 @@
+"""The LM optimizer of the port (counterpart of :mod:`repro.optim`): AdamW
+with a cosine schedule and the int8 error-feedback compression."""
+
+from .adamw import AdamW, AdamWState, cosine_schedule
+from .compress import compress_int8, decompress_int8, error_feedback_update
+
+__all__ = ["AdamW", "AdamWState", "cosine_schedule", "compress_int8",
+           "decompress_int8", "error_feedback_update"]

@@ -11,18 +11,21 @@ torch-native format (the reference's files are not read):
 
 A tree is nested dicts, lists, tuples and NamedTuples of tensors and
 Python scalars (an int such as the ring pointer is saved as a 0-d int64
-tensor and restored as an int).  Leaves are copied to the host *before*
-:func:`save_checkpoint` returns, always into new memory, so the saved
-state is the state at call time even when the caller goes on writing its
-tensors in place and the write runs on a background thread
-(``async_save=True``); the returned :class:`CheckpointHandle` must be
-joined, and ``join`` re-raises anything the writer raised.  Saves are
-atomic (a temporary directory, then a rename), so a crash mid-save never
-corrupts the newest complete step.
+tensor and restored as an int), and modules, whose parameters are
+leaves (an LM's :class:`repro_torch.train.TrainState`).  Leaves are
+copied to the host *before* :func:`save_checkpoint` returns, always into
+new memory, so the saved state is the state at call time even when the
+caller goes on writing its tensors in place and the write runs on a
+background thread (``async_save=True``); the returned
+:class:`CheckpointHandle` must be joined, and ``join`` re-raises anything
+the writer raised.  Saves are atomic (a temporary directory, then a
+rename), so a crash mid-save never corrupts the newest complete step.
 
 Restores are shape- AND dtype-checked against a template tree: a Q19.12
 int32 carry restored into a float32 target would otherwise be cast
-silently.  Each restored tensor goes onto its template leaf's device.
+silently.  Each restored tensor goes onto its template leaf's device; a
+template module is filled in place (after every leaf of the tree is
+checked), so a model's parameters are never held twice on the device.
 """
 
 from __future__ import annotations
@@ -48,13 +51,17 @@ def _items(node, path: str):
     elif isinstance(node, (list, tuple)):
         for i, v in enumerate(node):
             yield from _items(v, f"{path}[{i}]/")
+    elif isinstance(node, torch.nn.Module):
+        for k, p in node.named_parameters():
+            yield f"{path}.{k}", p
     elif node is not None:
         yield path.rstrip("/"), node
 
 
 def flatten(tree) -> dict:
     """Flat key -> leaf dict of ``tree``; keys name the path, e.g.
-    ``['carry']/.lif/.v`` or ``['records']/['raster']``."""
+    ``['carry']/.lif/.v``, ``['records']/['raster']`` or, for a module's
+    parameter, ``.params/.stack.0.mixer.wq``."""
     return dict(_items(tree, ""))
 
 
@@ -160,11 +167,22 @@ def _rebuild(node, path: str, z: dict):
     if isinstance(node, (list, tuple)):
         return type(node)(_rebuild(v, f"{path}[{i}]/", z)
                           for i, v in enumerate(node))
+    if isinstance(node, torch.nn.Module):
+        with torch.no_grad():
+            for k, p in node.named_parameters():
+                p.copy_(z[f"{path}.{k}"])
+        return node
     if node is None:
         return None
-    key = path.rstrip("/")
+    arr = z[path.rstrip("/")]
+    if isinstance(node, torch.Tensor):
+        return arr.to(node.device)
+    return type(node)(arr.item())
+
+
+def _check(z: dict, key: str, leaf) -> None:
     arr = z[key]
-    tgt = node if isinstance(node, torch.Tensor) else _host(node)
+    tgt = leaf if isinstance(leaf, torch.Tensor) else _host(leaf)
     if tuple(arr.shape) != tuple(tgt.shape):
         raise ValueError(f"shape mismatch for {key}: "
                          f"ckpt {tuple(arr.shape)} vs target "
@@ -173,16 +191,18 @@ def _rebuild(node, path: str, z: dict):
         # a silent cast here corrupts the bit-faithful Q19.12 path
         raise ValueError(f"dtype mismatch for {key}: "
                          f"ckpt {arr.dtype} vs target {tgt.dtype}")
-    if isinstance(node, torch.Tensor):
-        return arr.to(node.device)
-    return type(node)(arr.item())
 
 
 def unflatten(target_tree, flat: dict):
     """The inverse of :func:`flatten`: ``target_tree`` rebuilt from the
     flat key -> tensor dict, each leaf checked against the target's shape
-    and dtype and put on its device.  Keys of ``flat`` that the target
-    does not reference are ignored (a subtree restore)."""
+    and dtype and put on its device (a module's parameters copied into
+    it).  Keys of ``flat`` that the target
+    does not reference are ignored (a subtree restore).  Every leaf is
+    checked before any is written, so a refused restore leaves a template
+    module as it was."""
+    for key, leaf in _items(target_tree, ""):
+        _check(flat, key, leaf)
     return _rebuild(target_tree, "", flat)
 
 

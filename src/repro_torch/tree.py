@@ -5,6 +5,10 @@ partitioned runner maps over their leaves.  Here they are frozen
 dataclasses, NamedTuples, tuples, lists and dicts of tensors;
 :func:`map_tensors` rebuilds such an object with ``fn`` applied to every
 tensor it holds, in a fixed order (other values kept).
+
+The LM's parameters are an ``nn.Module``; :func:`named_tensors` gives
+them, or a dict of gradients or optimizer moments keyed the same way, as
+one flat name -> tensor dict.
 """
 
 from __future__ import annotations
@@ -30,4 +34,13 @@ def map_tensors(fn, x):
     return x
 
 
-__all__ = ["map_tensors"]
+def named_tensors(tree) -> dict:
+    """``tree`` as a flat name -> tensor dict: a module's
+    ``named_parameters()`` (``embed``, ``stack.0.mixer.wq``, ...), or a
+    dict of tensors keyed by those names as it is."""
+    if isinstance(tree, torch.nn.Module):
+        return dict(tree.named_parameters())
+    return dict(tree)
+
+
+__all__ = ["map_tensors", "named_tensors"]

@@ -881,3 +881,75 @@ def test_core_mesh_nccl_world_one_equals_simulate(cuda, tmp_path):
             make_core_mesh(1, backend="gloo")
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_flash_entry_refuses_a_gradient_on_the_card(cuda):
+    """The kernel has no backward (nor has the TPU kernel): under grad an
+    operand that requires grad raises before any launch; under no_grad
+    and inference_mode the kernel launches as before."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda) for s in ((1, 8, 64, 64), (1, 2, 64, 64), (1, 2, 64, 64)))
+    FK.reset_launches()
+    want = flash_attention(q, k, v)
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention(*args)
+        with pytest.raises(RuntimeError, match="no backward"):
+            FK.flash_attention_gqa(*args, scale=0.125, causal=True,
+                                   window=None)
+        with torch.no_grad():
+            assert torch.equal(flash_attention(*args), want)
+        with torch.inference_mode():
+            assert torch.equal(flash_attention(*args), want)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention"] == 7
+
+
+@pytest.mark.cuda
+def test_training_steps_on_the_card_match_the_cpu(cuda):
+    """Three SMOKE-size AdamW steps (float32, no TF32, 4 microbatches on
+    the third) on the card against the same steps on the CPU: loss rtol
+    1e-5, parameters atol 2e-3 (the reference's own accumulation-order
+    tolerance; AdamW turns a gradient entry near zero that the two
+    devices sum in another order into an update of up to ~lr).  Two runs
+    on the card are bitwise equal, so a resumed run can equal an
+    uninterrupted one."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2.5-14b", smoke=True)
+    cpu_params = init_params(0, cfg, "cpu")
+    ds = SyntheticLM(vocab=cfg.vocab, seq=32, global_batch=8)
+    opt = AdamW(lr=cosine_schedule(3e-3, 1, 3))
+    steps = [make_train_step(cfg, opt), make_train_step(cfg, opt),
+             make_train_step(cfg, opt, microbatches=4)]
+
+    def run(params, device):
+        state = init_train_state(params, opt)
+        losses = []
+        for i, step in enumerate(steps):
+            state, m = step(state, ds.batch_at(i, device))
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    on_card = [run(copy.deepcopy(cpu_params).to(cuda), cuda)
+               for _ in range(2)]
+    on_cpu = run(cpu_params, "cpu")
+    np.testing.assert_allclose(on_card[0][1], on_cpu[1], rtol=1e-5)
+    assert on_card[0][1] == on_card[1][1]
+    for (name, a), b, c in zip(on_card[0][0].params.named_parameters(),
+                               on_card[1][0].params.parameters(),
+                               on_cpu[0].params.parameters()):
+        assert a.device.type == "cuda" and torch.equal(a, b), name
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   c.detach().numpy(), atol=2e-3,
+                                   err_msg=name)

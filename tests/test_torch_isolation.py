@@ -61,7 +61,13 @@ def test_every_module_imports_with_jax_blocked():
                  "repro_torch.obs.check",
                  "repro_torch.core.engines.dense",
                  "repro_torch.core.engines.ell",
-                 "repro_torch.core.engines.binned"):
+                 "repro_torch.core.engines.binned",
+                 "repro_torch.optim.adamw",
+                 "repro_torch.optim.compress",
+                 "repro_torch.data.pipeline",
+                 "repro_torch.train.train_step",
+                 "repro_torch.train.fault",
+                 "repro_torch.launch.train"):
         assert name in names, name
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
@@ -123,6 +129,12 @@ def test_simulate_without_device_needs_cuda():
         SimServer(c, SimConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--n", "200"])
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticLM(vocab=50, seq=4, global_batch=2).batch_at(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--smoke", "--steps", "1"])
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

@@ -146,7 +146,7 @@ def test_init_and_cache_shapes():
     pc = get_config("qwen2.5-14b", smoke=True)
     p = init_params(0, pc, device="cpu")
     assert sum(x.numel() for x in p.parameters()) == count_params(pc)
-    assert not any(x.requires_grad for x in p.parameters())
+    assert all(x.requires_grad for x in p.parameters())     # trainable
     assert float(p.embed.std()) == pytest.approx(0.02, rel=0.1)
     assert torch.equal(init_params(0, pc, device="cpu").embed, p.embed)
     cache = init_cache(pc, 3, 16, device="cpu")
