@@ -73,6 +73,16 @@ kernel against its plain PyTorch version, then drives these paths:
   ``attention_impl="pallas"``, the flash attention kernel, answering 8
   requests; its tokens are held against a plain-attention run of the same
   weights;
+* the dense family completed and the MoE family, each at its full
+  published width cut in depth: phi3-medium-14b (4 layers),
+  command-r-35b (4), gemma3-12b (6: five 1,024-window local layers at
+  d_head 256 and one global), grok-1-314b (2: 8 experts, top-2) and
+  llama4-scout-17b-a16e (4: 16 experts, top-1, a shared expert), the MoE
+  configs at their capacity factor 1.25, served through ``ServingEngine``
+  with the flash kernel (one launch a layer a prefill) and with chunked
+  attention: the same tokens, or a difference only after a near-tie of
+  the next token or of an MoE routing decision; a prefill and a decode
+  step profiled each;
 * LM training (``repro_torch.train``) at qwen2.5-14b's full width, cut to
   4 layers (2.658B float32 parameters, chunked attention, remat, no
   TF32): 10 AdamW steps of 4 x 512 synthetic tokens, whose loss must
@@ -81,7 +91,14 @@ kernel against its plain PyTorch version, then drives these paths:
   to the uninterrupted run; 2 steps profiled; the trained weights served
   through ``ServingEngine`` with the flash kernel and with chunked
   attention (the same tokens); and ``python -m repro_torch.launch.train
-  --smoke`` as a program, recovering from ``--fail-at 30``.
+  --smoke`` as a program, recovering from ``--fail-at 30``;
+* the same training run with ``compute_dtype=torch.bfloat16`` (float32
+  masters and moments): 10 steps whose loss must fall and stay within
+  ``BF16_LOSS_ATOL`` of the float32 run's, timed and profiled.
+
+The flash kernel is also timed at gemma3-12b's local layers (D 256,
+window 1,024, S 1,024 and 2,048) beside its plain version and
+``scaled_dot_product_attention``.
 
 Both delivery kernels are also timed on the full FlyWire store with
 0.1%, 1% and every neuron spiking, beside the ``torch.sparse`` CSR
@@ -91,7 +108,8 @@ product with the dense [n, 10] spike matrix.  Every phase raises on
 failure; nothing is caught.  The last lines are a JSON line of the
 supervision and scenario numbers, a JSON line of the serving and
 resilience numbers, a JSON line of the exact engines' and the 12-rank
-path's numbers, a JSON line of the training numbers, a JSON line of
+path's numbers, a JSON line of the training numbers (float32 and
+bfloat16), a JSON line of the LM families' numbers, a JSON line of
 those activity cases
 (``background_storm``'s spikes among them), a JSON line of kernel
 measurements, the card's name and power limit, and ``{"ok": true,
@@ -115,6 +133,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 without tensor cores
 TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+BF16_FLOP_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
 N_FULL = 139_255
 SYN_FULL = 15_000_000
 N_KERNEL_CHECK = 20_000
@@ -196,6 +215,18 @@ TRAIN_PROFILE_STEPS = 2
 MB_LOSS_RTOL, MB_PARAM_ATOL = 1e-4, 2e-3  # tests/test_train.py's tolerance
 TRAIN_CLI = ["--arch", "qwen2.5-14b", "--smoke", "--steps", "60",
              "--ckpt-every", "20", "--fail-at", "30"]
+# the dense family completed and the MoE family, each at its full
+# published width with depth the one cut: (config module, layers kept)
+LM_FAMILIES = [("phi3_medium_14b", 4), ("command_r_35b", 4),
+               ("gemma3_12b", 6),            # one whole 5:1 pattern
+               ("grok1_314b", 2),            # 19.3 GB of experts a layer
+               ("llama4_scout_17b_a16e", 4)]
+# an MoE routing decision whose top-k router-logit margin is this close
+# counts as a near-tie, as LOGIT_TOL does for the next token
+ROUTE_TOL = 1e-3
+# the bfloat16 compute_dtype training run's losses against the float32
+# run's of the same weights and batches, step by step
+BF16_LOSS_ATOL = 0.05
 DEVICE = "cuda"
 
 
@@ -1628,50 +1659,77 @@ def causal_pairs(S: int, window) -> int:
     return int((i - lo + 1).sum())
 
 
-@phase("flash attention yardstick at the prefill's shapes")
-def phase_flash_yardstick(smi, S=1024):
-    """The kernel at a 1,024-token qwen2.5-14b prefill (H 40, Hkv 8, D
-    128, causal): CUDA events, the plain version, the library call
-    (scaled_dot_product_attention in float32, a yardstick the port never
-    calls), and two flop bounds: the kernel's own work, three TF32
+def flash_yardstick(smi, H, Hkv, S, D, window, label, seed):
+    """The kernel at one causal shape (B 1): CUDA events, the plain
+    version, the library call (scaled_dot_product_attention in float32,
+    with the window as a boolean mask; a yardstick the port never calls),
+    and two flop bounds over the pairs the mask keeps: three TF32
     products per float32 product at the TF32 tensor-core rate (the bound
-    it reports), and the same flops as float32 FMAs on the CUDA cores."""
+    it reports), and the same flops as float32 FMAs on the CUDA cores.
+    The kernel is held against its plain version (FLASH_ATOL)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    B, H, Hkv, D = 1, 40, 8, 128
-    q, k, v = flash_inputs(B, H, Hkv, S, D, 99)
-    out = flash_attention(q, k, v, causal=True)
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                         enable_gqa=True)
+    B = 1
+    q, k, v = flash_inputs(B, H, Hkv, S, D, seed)
+    mask = None
+    if window is not None:
+        i = torch.arange(S, device=DEVICE)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window
+                                             - 1)
+    kw = dict(scale=D ** -0.5, causal=True, window=window)
+
+    def library():
+        if mask is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    plain = FK.flash_attention_plain(q, k, v, **kw)
+    lib = library()
     torch.cuda.synchronize()
-    check(max_abs_err(out, lib) <= FLASH_ATOL, "flash != library call")
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
+    err = max_abs_err(out, plain)
+    check(err <= FLASH_ATOL, f"{label}: flash != plain by {err}")
+    check(max_abs_err(out, lib) <= FLASH_ATOL, f"{label}: flash != library")
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                         window=window), 20)
     # the bare wrapper: one allocation and one launch per call, so at this
     # length CUDA events time the kernel itself
-    dev_ms = cuda_ms(lambda: FK.flash_attention_gqa(
-        q, k, v, scale=D ** -0.5, causal=True, window=None), 20)
-    plain_ms = cuda_ms(lambda: FK.flash_attention_plain(
-        q, k, v, scale=D ** -0.5, causal=True, window=None), 5)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 20)
-    flops = 4 * D * B * H * causal_pairs(S, None)
+    dev_ms = cuda_ms(lambda: FK.flash_attention_gqa(q, k, v, **kw), 20)
+    plain_ms = cuda_ms(lambda: FK.flash_attention_plain(q, k, v, **kw), 5)
+    lib_ms = cuda_ms(library, 20)
+    flops = 4 * D * B * H * causal_pairs(S, window)
     nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
     bound = max(3 * flops / TF32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     bound_f32 = max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    print(f"flash_attention at S={S}: {ms:.5f} ms/call (CUDA events; "
-          f"bare kernel wrapper {dev_ms:.5f} ms, CUDA events), "
+    print(f"flash_attention, {label} (H {H}, Hkv {Hkv}, S {S}, D {D}, "
+          f"window {window}, causal): {ms:.5f} ms/call (CUDA events; bare "
+          f"kernel wrapper {dev_ms:.5f} ms, CUDA events), "
           f"{flops / ms / 1e9:.2f} TFLOP/s float32-equivalent "
           f"({3 * flops / ms / 1e9:.2f} TFLOP/s of TF32 products), plain "
           f"{plain_ms:.5f} ms, scaled_dot_product_attention {lib_ms:.5f} "
           f"ms; bound {bound:.5f} ms (3xTF32: {3 * flops} TF32 flop at "
           f"495 TFLOP/s), float32 CUDA-core bound {bound_f32:.5f} ms "
-          f"({flops} flop at 67 TFLOP/s; {nbytes} B); card {smi}",
-          flush=True)
-    del q, k, v, out, lib
+          f"({flops} flop at 67 TFLOP/s; {nbytes} B); |out - plain| "
+          f"{err:.3e}; card {smi}", flush=True)
+    del q, k, v, out, lib, plain
     torch.cuda.empty_cache()
-    return ms, plain_ms, bound, lib_ms
+    return ms, plain_ms, bound, lib_ms, err
+
+
+@phase("flash attention yardstick at the prefill's shapes")
+def phase_flash_yardstick(smi, S=1024):
+    """The kernel at a 1,024-token qwen2.5-14b prefill (H 40, Hkv 8, D
+    128, causal), then at gemma3-12b's local layers (H 16, Hkv 8, D 256,
+    window 1,024) at S = 1,024 and at 2,048, where the window masks.
+    Returns the qwen case's numbers and the gemma3 cases'."""
+    qwen = flash_yardstick(smi, 40, 8, S, 128, None, "qwen2.5-14b", 99)
+    gemma = {s: flash_yardstick(smi, 16, 8, s, 256, 1024,
+                                f"gemma3-12b local at S = {s}", 98)
+             for s in (1024, 2048)}
+    return qwen[:4], gemma
 
 
 def lm_requests(vocab: int):
@@ -1724,11 +1782,87 @@ def top2_gap(params, cfg, tokens) -> float:
     return float(top[0] - top[1])
 
 
+class RouteLog:
+    """Records every MoE layer call of a serving run: the requests its
+    batch rows belong to, and each token's top-k choices and margin (the
+    k-th router logit minus the (k+1)-th).  ``install`` wraps the
+    transformer's moe_apply and an engine's admission and decode step."""
+
+    def __init__(self):
+        self.rows, self.calls = None, []
+
+    def install(self, eng):
+        import torch
+
+        import repro_torch.models.transformer as tfm
+        from repro_torch.models import layers as L
+        real = tfm.moe_apply
+        add, step = eng.add_request, eng.step
+
+        def moe_apply(p, h, *, top_k, capacity_factor, act):
+            logits = (h @ p["router"]).float()
+            top = torch.sort(logits, dim=-1, descending=True).values
+            margin = top[..., top_k - 1] - top[..., top_k]
+            choices = L.stable_top_k(logits.softmax(-1), top_k)[1]
+            self.calls.append((self.rows, choices.cpu(), margin.cpu()))
+            return real(p, h, top_k=top_k, capacity_factor=capacity_factor,
+                        act=act)
+
+        def add_request(req):
+            self.rows = [req.rid]
+            return add(req)
+
+        def decode_step():
+            self.rows = [None if r is None else r.rid for r in eng.live]
+            return step()
+        tfm.moe_apply = moe_apply
+        eng.add_request, eng.step = add_request, decode_step
+        return lambda: setattr(tfm, "moe_apply", real)
+
+
+def first_route_flip(log_a, log_b, rid):
+    """The first MoE decision of request ``rid`` (in execution order) that
+    the two runs route differently: (call, position, margin), the margin
+    the smaller of the two runs', or None when they route alike."""
+    check(len(log_a.calls) == len(log_b.calls),
+          "the two runs made different MoE calls")
+    for i, ((rows, ca, ma), (rows_b, cb, mb)) in enumerate(
+            zip(log_a.calls, log_b.calls)):
+        check(rows == rows_b, "the two runs batched different requests")
+        for r, owner in enumerate(rows):
+            if owner != rid:
+                continue
+            diff = (ca[r] != cb[r]).any(-1).nonzero().flatten()
+            if len(diff):
+                s = int(diff[0])
+                return i, s, float(min(ma[r, s], mb[r, s]))
+    return None
+
+
+def serve_logged(params, cfg):
+    """The LM requests through a ServingEngine whose MoE calls are
+    recorded; returns (tokens by rid, the RouteLog)."""
+    from repro_torch.serving import ServeConfig, ServingEngine
+    eng = ServingEngine(params, cfg, ServeConfig(batch_slots=LM_SLOTS,
+                                                 max_len=LM_MAX_LEN))
+    log = RouteLog()
+    restore = log.install(eng)
+    try:
+        done = eng.run(lm_requests(cfg.vocab))
+    finally:
+        restore()
+    return {r.rid: r.out for r in done}, log
+
+
 def compare_served(params, cfg, plain_cfg, toks, plain_toks):
     """The flash run's tokens against the plain run's: equal, or apart
-    only after a near-tie (top-2 gap <= LOGIT_TOL).  Also the logits of
-    one prefill under both impls, which must agree within LOGIT_TOL.
-    Returns (their largest difference, the requests that differ)."""
+    only after a near-tie: of the next token (top-2 gap <= LOGIT_TOL) or,
+    for an MoE config, of the first MoE decision that the two runs route
+    differently for the request (both runs served again, recorded; its
+    top-k margin <= ROUTE_TOL).  Every such case is printed.  Also the
+    logits of one prefill under both impls, which must agree within
+    LOGIT_TOL.  Returns (their largest difference, the requests that
+    differ, the routing near-ties)."""
     import numpy as np
     import torch
     from repro_torch.models import prefill
@@ -1739,19 +1873,34 @@ def compare_served(params, cfg, plain_cfg, toks, plain_toks):
     lb, _ = prefill(params, {"tokens": t}, plain_cfg, len(r0.prompt))
     d_logit = max_abs_err(la, lb)
     check(d_logit <= LOGIT_TOL, f"prefill logits differ by {d_logit}")
-    differing = 0
-    for rid, out in toks.items():
-        ref = plain_toks[rid]
-        if out == ref:
-            continue
-        differing += 1
+    differ = [rid for rid, out in toks.items() if out != plain_toks[rid]]
+    ties = []
+    if differ and cfg.n_experts:
+        again, log_a = serve_logged(params, cfg)
+        again_plain, log_b = serve_logged(params, plain_cfg)
+        check(again == toks and again_plain == plain_toks,
+              "a served run is not deterministic")
+    for rid in differ:
+        out, ref = toks[rid], plain_toks[rid]
         j = next(i for i, (x, y) in enumerate(zip(out, ref)) if x != y)
+        flip = (first_route_flip(log_a, log_b, rid) if cfg.n_experts
+                else None)
+        if flip is not None:
+            call, pos, margin = flip
+            print(f"request {rid}: tokens differ from step {j} on; first "
+                  f"routing difference at MoE call {call}, position {pos}, "
+                  f"top-k router-logit margin {margin:.3e}", flush=True)
+            check(margin <= ROUTE_TOL, f"request {rid}: a routing decision "
+                  f"flipped at a margin of {margin} > {ROUTE_TOL}")
+            ties.append({"rid": rid, "step": j, "call": call,
+                         "position": pos, "margin": margin})
+            continue
         gap = top2_gap(params, plain_cfg, list(reqs[rid].prompt) + out[:j])
         print(f"request {rid}: tokens differ from step {j} on; top-2 "
               f"logit gap there {gap:.3e}", flush=True)
         check(gap <= LOGIT_TOL, f"request {rid}: token {j} differs "
               f"with a top-2 gap of {gap} > {LOGIT_TOL}")
-    return d_logit, differing
+    return d_logit, len(differ), ties
 
 
 @phase("qwen2.5-14b serving through the flash kernel")
@@ -1793,8 +1942,8 @@ def phase_lm(smi):
         plain_toks, plain_stats, plain_secs, _ = serve(params, plain_cfg,
                                                        "serve (plain)")
         reqs = {r.rid: r for r in lm_requests(cfg.vocab)}
-        d_logit, differing = compare_served(params, cfg, plain_cfg, toks,
-                                            plain_toks)
+        d_logit, differing, _ = compare_served(params, cfg, plain_cfg, toks,
+                                               plain_toks)
         # one prefill (the longest prompt) and one 4-slot decode step at
         # the run's shapes, profiled: where the time goes
         longest = max(reqs.values(), key=lambda r: len(r.prompt))
@@ -1824,6 +1973,106 @@ def phase_lm(smi):
     del params
     torch.cuda.empty_cache()
     return n_flash
+
+
+@phase("the dense family completed and the MoE family at full width")
+def phase_lm_families(smi):
+    """Each config of LM_FAMILIES at its full published width, depth the
+    one cut, float32 weights from init_params(LM_SEED): serve the LM
+    requests through ServingEngine with attention_impl="pallas" (launch
+    counts zeroed just before, read just after: one flash launch per
+    layer per prefill; gemma3's five local layers run the kernel with its
+    1,024 window at D = 256), then with "chunked"; the tokens agree or
+    differ only after a near-tie (compare_served, which for the MoE
+    configs also counts a routing near-tie).  One prefill of the longest prompt and one
+    4-slot decode step are profiled; peak device memory.  Returns
+    {config: flash launches} and the numbers."""
+    import dataclasses as dc
+    import importlib
+
+    import numpy as np
+    import torch
+    from repro_torch.models import (count_params, decode_step, init_cache,
+                                    init_params, prefill)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches_by_cfg, out = {}, {}
+    for mod_name, layers in LM_FAMILIES:
+        t_cfg = time.perf_counter()
+        full = importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
+        cfg = dc.replace(full, n_layers=layers, attention_impl="pallas")
+        plain_cfg = dc.replace(cfg, attention_impl="chunked")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(LM_SEED, cfg)
+        n_params = sum(p.numel() for p in params.parameters())
+        check(n_params == count_params(cfg), f"{cfg.name}: parameter count")
+        print(f"{cfg.name}: {n_params} float32 parameters "
+              f"({n_params * 4 / 1e9:.3f} GB), {layers} of {full.n_layers} "
+              f"layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab}, pattern {cfg.block_pattern}, window "
+              f"{cfg.window}, experts {cfg.n_experts} top-{cfg.top_k} "
+              f"(capacity factor {cfg.moe_capacity_factor}, shared "
+              f"{cfg.shared_expert})", flush=True)
+        with torch.inference_mode():
+            toks, stats, secs, launches = serve(params, cfg,
+                                                f"{cfg.name} serve (flash)")
+            n_flash = launches["flash_attention"]["flash_attention"]
+            check(n_flash == cfg.n_layers * stats["admitted"],
+                  f"{cfg.name}: flash kernel launched {n_flash} times for "
+                  f"{stats['admitted']} prefills of {cfg.n_layers} layers")
+            plain_toks, plain_stats, plain_secs, _ = serve(
+                params, plain_cfg, f"{cfg.name} serve (plain)")
+            check(stats == plain_stats, f"{cfg.name}: stats differ")
+            d_logit, differing, ties = compare_served(
+                params, cfg, plain_cfg, toks, plain_toks)
+            reqs = lm_requests(cfg.vocab)
+            longest = max(reqs, key=lambda r: len(r.prompt))
+            S = len(longest.prompt)
+            t = torch.from_numpy(longest.prompt.astype(np.int64))[None].to(
+                DEVICE)
+            prefill_ms, pk = device_profile(
+                lambda: prefill(params, {"tokens": t}, cfg, LM_MAX_LEN))
+            print_breakdown(f"{cfg.name} prefill of {S} tokens", prefill_ms,
+                            pk)
+            cache = init_cache(cfg, LM_SLOTS, LM_MAX_LEN)
+            tok4 = torch.zeros(LM_SLOTS, dtype=torch.int64, device=DEVICE)
+            pos4 = torch.full((LM_SLOTS,), S, dtype=torch.int32,
+                              device=DEVICE)
+            decode_ms, dk = device_profile(
+                lambda: decode_step(params, cache, tok4, pos4, cfg), 3)
+            print_breakdown(f"{cfg.name} decode step of {LM_SLOTS} slots",
+                            decode_ms, dk)
+            del cache
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_tok = sum(len(v) for v in toks.values())
+        busy = {k: (None if kk is None else sum(
+            x for x, _ in kk.values()) / wall)
+            for k, (wall, kk) in {"prefill": (prefill_ms, pk),
+                                  "decode": (decode_ms, dk)}.items()}
+        print(f"{cfg.name} x {layers} layers: flash run {secs:.3f} s "
+              f"({n_tok / secs:.2f} tokens/s), plain run {plain_secs:.3f} "
+              f"s, {differing} of {len(toks)} requests differ in tokens "
+              f"({len(ties)} after a routing near-tie); prefill logits "
+              f"|diff| {d_logit:.3e}; one prefill of {S} tokens "
+              f"{prefill_ms:.3f} ms, one decode step of {LM_SLOTS} slots "
+              f"{decode_ms:.3f} ms (profiled); weights "
+              f"{n_params * 4 / HBM_BYTES_PER_S * 1e3:.3f} ms to read at "
+              f"3.35 TB/s; peak device memory {peak:.3f} GB; flash "
+              f"launches {n_flash}; {time.perf_counter() - t_cfg:.3f} s; "
+              f"card {smi}", flush=True)
+        launches_by_cfg[cfg.name] = n_flash
+        out[cfg.name] = {
+            "layers": layers, "params": n_params, "flash_launches": n_flash,
+            "serve_s": secs, "plain_serve_s": plain_secs,
+            "tokens_per_s": n_tok / secs, "requests_differing": differing,
+            "routing_near_ties": ties, "prefill_logit_max_abs_err": d_logit,
+            "prefill_tokens": S, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "busy_share": busy, "peak_gb": peak,
+            "s": time.perf_counter() - t_cfg}
+        del params
+        torch.cuda.empty_cache()
+    return launches_by_cfg, out
 
 
 def train_flops(params, cfg, batch, seq) -> float:
@@ -2016,8 +2265,8 @@ def phase_train(smi):
               f"flash kernel launched {n_flash} times for "
               f"{stats['admitted']} prefills of {cfg.n_layers} layers")
         plain_toks, _, _, _ = serve(params, cfg, "serve trained (plain)")
-        d_logit, differing = compare_served(params, flash_cfg, cfg, toks,
-                                            plain_toks)
+        d_logit, differing, _ = compare_served(params, flash_cfg, cfg, toks,
+                                               plain_toks)
     print(f"trained weights served: {differing} of {len(toks)} requests "
           f"differ in tokens; prefill logits |diff| {d_logit:.3e}; flash "
           f"launches {n_flash}", flush=True)
@@ -2047,6 +2296,89 @@ def phase_train(smi):
     shutil.rmtree(os.path.join(here, WORK_DIR, "train_cli"))
     out["cli_s"] = cli_s
     return n_flash, out
+
+
+@phase("qwen2.5-14b training in bfloat16 compute_dtype")
+def phase_train_bf16(smi, f32):
+    """phase_train's uninterrupted run with compute_dtype=torch.bfloat16
+    (float32 masters, gradients and AdamW moments; every parameter of two
+    or more dimensions cast to bfloat16 for the forward and backward
+    passes): the same weights, batches and schedule, T_TRAIN steps, no
+    recovery run.  Gates: the loss falls, and every step's loss is within
+    BF16_LOSS_ATOL of the float32 run's (``f32``: phase_train's numbers).
+    TRAIN_PROFILE_STEPS more steps profiled; the FLOP share is against
+    the card's dense bfloat16 rate."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import qwen2_5_14b
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dc.replace(qwen2_5_14b.CONFIG, n_layers=TRAIN_LAYERS,
+                     compute_dtype=torch.bfloat16)
+    ds = SyntheticLM(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                     global_batch=TRAIN_BATCH, seed=LM_SEED)
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, TRAIN_WARMUP, T_TRAIN))
+    step = make_train_step(cfg, opt)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(init_params(LM_SEED, cfg), opt)
+    losses, ms = [], []
+    for i in range(T_TRAIN):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, ds.batch_at(i))
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(all(p.dtype == torch.float32 for p in state.params.parameters())
+          and all(v.dtype == torch.float32 for v in state.opt.m.values()),
+          "the masters or moments are not float32")
+    gap = max(abs(a - b) for a, b in zip(losses, f32["losses"]))
+    check(gap <= BF16_LOSS_ATOL, f"bfloat16 losses {losses} are {gap} from "
+          f"the float32 run's {f32['losses']}")
+    batch = ds.batch_at(T_TRAIN)
+    holder = {"state": state}
+    del state
+
+    def one_step():
+        holder["state"], m = step(holder["state"], batch)
+        return m
+    wall_ms, kernels = device_profile(one_step, TRAIN_PROFILE_STEPS)
+    print_breakdown(f"bfloat16 training step ({tokens} tokens)", wall_ms,
+                    kernels, top=10)
+    busy = (None if kernels is None
+            else sum(k_ms for k_ms, _ in kernels.values()) / wall_ms)
+    params = holder.pop("state").params
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = train_flops(params, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    del params
+    torch.cuda.empty_cache()
+    step_ms = sum(ms[1:]) / (len(ms) - 1)
+    bound_ms = flops / BF16_FLOP_PER_S * 1e3
+    busy_text = "not measured" if busy is None else f"{100 * busy:.2f}%"
+    print(f"bfloat16 training: losses {losses} (float32 run "
+          f"{f32['losses']}; largest gap {gap:.4e}); ms per step "
+          f"{[round(x, 3) for x in ms]} (first {ms[0]:.3f}, mean of the "
+          f"rest {step_ms:.3f}; float32 {f32['ms_per_step']:.3f}, "
+          f"{f32['ms_per_step'] / step_ms:.3f}x); "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s; peak device memory "
+          f"{peak:.3f} GB; {flops:.4e} FLOP a step, {bound_ms:.3f} ms at "
+          f"989 TFLOP/s bfloat16 = {100 * bound_ms / step_ms:.2f}% of the "
+          f"step; device busy {busy_text} over {TRAIN_PROFILE_STEPS} "
+          f"profiled steps; card {smi}", flush=True)
+    return {"losses": losses, "max_abs_loss_gap_to_f32": gap,
+            "ms_per_step": step_ms, "first_ms": ms[0],
+            "f32_ms_per_step": f32["ms_per_step"],
+            "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak,
+            "flop_per_step": flops, "bf16_bound_ms": bound_ms,
+            "flop_share_bf16": bound_ms / step_ms, "busy_share": busy,
+            "profiled_wall_ms": wall_ms}
 
 
 def dist_run(d, sim, scheme, t_steps, stim, probes, label):
@@ -3563,8 +3895,11 @@ def main() -> int:
         yard[name] = (ms, plain_ms, bound, lib_ms, err)
         launches[name] = n
     launches["flash_attention"] = phase_lm(smi)
+    family_launches, families = phase_lm_families(smi)
     train_launches, training = phase_train(smi)
-    yard["flash_attention"] = (*phase_flash_yardstick(smi), 0.0)
+    training["bf16"] = phase_train_bf16(smi, training)
+    flash_qwen, flash_gemma = phase_flash_yardstick(smi)
+    yard["flash_attention"] = (*flash_qwen, 0.0)
 
     K, LK, FK = kernel_modules()
     rel = lambda p: os.path.relpath(p, here)  # noqa: E731
@@ -3631,6 +3966,17 @@ def main() -> int:
             # the trained weights' serving check (4 layers): training
             # itself never launches it (chunked attention; no backward)
             kernels[-1]["train_serving_launches"] = train_launches
+            # the five configs of phase_lm_families (layers x prefills)
+            kernels[-1]["families_launches"] = family_launches
+            # gemma3's local layers: D 256, window 1,024, causal
+            kernels[-1]["d256_window1024"] = {
+                f"S{s}": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "library_ms": lib_ms, "max_abs_err": err}
+                for s, (ms, plain_ms, b_ms, lib_ms, err)
+                in flash_gemma.items()}
+    check(all(n > 0 for n in family_launches.values())
+          and len(family_launches) == len(LM_FAMILIES),
+          "the flash kernel never launched for a config of phase_lm_families")
     check(all(k["launches"] > 0 for k in kernels)
           and all(k["sharded_p12"]["launches"] > 0
                   and k["sharded_p12"]["trials_b3_launches"] > 0
@@ -3664,6 +4010,7 @@ def main() -> int:
                       "multiprocess_p12": extra["multiprocess_p12"],
                       "cli_torchrun_p12_s": cli_torchrun_s}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"lm_families": families}))
     print(json.dumps({"activity": activity}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of :mod:`repro`: the connectome simulator and the
-dense LM side-stack with its serving engine.
+LM side-stack's dense and MoE families with their serving engine and
+training path.
 
 Module paths mirror the JAX package's (``repro_torch/core/engine.py`` is
 the counterpart of ``repro/core/engine.py``).  This package imports

@@ -4,8 +4,11 @@
 Counterpart of ``repro/configs/__init__.py``: ``get_config(name)`` returns
 the full published config, ``get_config(name, smoke=True)`` the reduced
 same-family variant the CPU tests use.  Of the reference's ten
-architectures only the dense ones whose layers are ported have a module
-here (``qwen2.5-14b``); the others raise ``NotImplementedError``.
+architectures the dense (``phi3-medium-14b``, ``qwen2.5-14b``,
+``command-r-35b``, ``gemma3-12b``) and MoE (``grok-1-314b``,
+``llama4-scout-17b-a16e``) ones have a module here; the recurrent,
+enc-dec and VLM ones, whose layers are not ported, raise
+``NotImplementedError``.  :mod:`.shapes` holds the input-shape cells.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ ALIASES = {
     "llava-next-34b": "llava_next_34b",
 }
 
-PORTED = ("qwen2_5_14b",)
+PORTED = ("grok1_314b", "llama4_scout_17b_a16e", "phi3_medium_14b",
+          "qwen2_5_14b", "command_r_35b", "gemma3_12b")
 
 
 def get_config(name: str, smoke: bool = False):

@@ -30,6 +30,9 @@ _CONNECTOME_ARRAYS = ("in_indptr", "in_indices", "in_weights", "out_indptr",
 
 def _t(x, device, dtype=None) -> torch.Tensor:
     a = np.array(x, dtype=dtype, order="C")     # a writable copy, 0-d kept
+    if a.dtype.name == "bfloat16":              # numpy's ml_dtypes extension
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            resolve_device(device))
     return torch.from_numpy(a).to(resolve_device(device))
 
 
@@ -135,7 +138,10 @@ def _layer(tree, r=None):
 def lm_params_from_jax(params, cfg, device=None):
     """The reference's LM parameter pytree (from ``repro.models.
     init_params``; JAX or numpy leaves) as the port's
-    :class:`repro_torch.models.LMParams` for the dense config ``cfg``.
+    :class:`repro_torch.models.LMParams` for the dense or MoE config
+    ``cfg``.  Leaves keep their dtype (bfloat16 too); an MoE block's
+    ``ffn`` carries the router, the ``[E, in, out]`` expert tensors and,
+    for a shared expert, the nested ``shared`` MLP.
 
     The reference's ``stack`` holds ``"scan"``, one tree per position of
     ``cfg.block_pattern`` stacked over the pattern's repeats, and
@@ -178,7 +184,9 @@ def lm_tree_to_jax_layout(tree, cfg) -> dict:
     moments.  Returns the reference's parameter pytree of numpy arrays:
     ``embed``, ``lm_head`` (unless tied), ``final_norm`` and ``stack`` with
     its ``"scan"`` (per pattern position, stacked over the repeats) and
-    ``"tail"`` layers."""
+    ``"tail"`` layers; a dotted name nests (``stack.0.ffn.shared.w_up``
+    is the MoE's shared expert).  numpy has no bfloat16 of its own, so a
+    bfloat16 tensor comes back as float32 (exactly)."""
     from torch import nn
 
     flat = (dict(tree.named_parameters()) if isinstance(tree, nn.Module)
@@ -189,7 +197,8 @@ def lm_tree_to_jax_layout(tree, cfg) -> dict:
         node = nested
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     layers = nested.pop("stack")
     pat = len(cfg.block_pattern)
     n_rep = cfg.n_layers // pat

@@ -1,8 +1,10 @@
-"""The LM side-stack of the port: the dense transformer family (counterpart
-of :mod:`repro.models`)."""
+"""The LM side-stack of the port: the dense and MoE transformer families
+(counterpart of :mod:`repro.models`)."""
 
-from .model import (LMParams, ModelConfig, count_params, decode_step, forward,
-                    init_cache, init_params, loss_fn, prefill)
+from .model import (LMParams, ModelConfig, cast_for_compute, count_params,
+                    decode_step, forward, init_cache, init_params, loss_fn,
+                    prefill)
 
-__all__ = ["LMParams", "ModelConfig", "count_params", "decode_step",
-           "forward", "init_cache", "init_params", "loss_fn", "prefill"]
+__all__ = ["LMParams", "ModelConfig", "cast_for_compute", "count_params",
+           "decode_step", "forward", "init_cache", "init_params", "loss_fn",
+           "prefill"]

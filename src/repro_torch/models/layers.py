@@ -1,21 +1,28 @@
-"""Shared transformer layers: norms, RoPE, GQA attention, gated MLP.
+"""Shared transformer layers: norms, RoPE, GQA attention, gated MLP,
+sort-based MoE.
 
-Counterpart of ``repro/models/layers.py`` for the dense stack.  Parameters
-are mappings of tensors with the reference's keys (``wq``, ``bq``,
-``w_up``, ...), weights stored ``[in, out]`` as there.
+Counterpart of ``repro/models/layers.py``.  Parameters are mappings of
+tensors with the reference's keys (``wq``, ``bq``, ``w_up``, ``router``,
+...), weights stored ``[in, out]`` (experts ``[E, in, out]``) as there.
 
 Attention implementations (``cfg.attention_impl``, the reference's values):
 
-* ``"chunked"`` -- online softmax over kv chunks in plain PyTorch (the
+* ``"chunked"``  -- online softmax over kv chunks in plain PyTorch (the
   reference's ``lax.scan`` becomes a loop), O(S * chunk) memory;
-* ``"pallas"``  -- the flash attention kernel: on a CUDA device the port's
+* ``"banded"``   -- a static loop over q blocks, each against its causal
+  kv prefix or window band only (half the FLOPs of ``"chunked"``);
+* ``"windowed"`` -- sliding-window attention as a loop over q blocks, each
+  against a kv band of static size ``window + block``; without a window
+  or without ``causal`` it is ``"chunked"``, as in the reference;
+* ``"pallas"``   -- the flash attention kernel: on a CUDA device the port's
   hand-written CUDA kernel (:mod:`repro_torch.kernels.flash_attention`),
   on the CPU its plain version.  The name is the reference's, so its
   configs carry over unchanged.
 
-``"banded"`` and ``"windowed"`` (XLA-shaped variants of the same math)
-and the MoE layers are not ported and raise ``NotImplementedError``; the
-reference's ``shard_act`` is a no-op on one device and is dropped.
+Mixed dtypes (``compute_dtype``): ``torch.matmul`` refuses operands of two
+dtypes where ``jnp.matmul`` promotes them, so the products go through
+:func:`_mm` / :func:`_einsum`, which promote as JAX does.  The reference's
+``shard_act`` is a no-op on one device and is dropped.
 """
 
 from __future__ import annotations
@@ -23,7 +30,29 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .param import bias_param, dense_param, scale_param
+from .param import bias_param, dense_param, expert_param, scale_param
+
+
+def _promoted(a, b):
+    """``a``, ``b`` converted to their promoted dtype where they differ
+    (a bfloat16 activation against a float32 weight gives float32, as in
+    JAX)."""
+    if a.dtype == b.dtype:
+        return a, b
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def _mm(a, b):
+    """``a @ b`` with JAX's promotion of mixed operand dtypes."""
+    a, b = _promoted(a, b)
+    return a @ b
+
+
+def _einsum(eq, a, b):
+    a, b = _promoted(a, b)
+    return torch.einsum(eq, a, b)
+
 
 # --------------------------------------------------------------------------
 # Norms
@@ -92,9 +121,9 @@ def attention_init(gen, d_model, n_heads, n_kv_heads, d_head, qkv_bias=False,
 
 def _qkv(p, x, n_heads, n_kv_heads, d_head):
     B, S, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = _mm(x, p["wq"])
+    k = _mm(x, p["wk"])
+    v = _mm(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (q.reshape(B, S, n_heads, d_head),
@@ -147,6 +176,67 @@ def chunked_attention(q, k, v, *, causal, window, chunk=512, q_offset=0):
     return out.reshape(B, H, Sq, D).to(q.dtype)
 
 
+def windowed_attention(q, k, v, *, window, block=1024):
+    """Causal sliding-window attention as a loop over q blocks, each
+    attending to a kv band of static size ``band`` (``window + block``
+    rounded up to whole blocks, at most S) that ends with its q block:
+    exact-window FLOPs.  q: [B,H,S,D], k/v: [B,Hkv,S,D].
+
+    The reference's band is kept as it is: when S is not a multiple of
+    ``block`` and the band is capped at S below ``window + block``, the
+    last (padded) q block's band starts ``pad_q`` keys late, and those
+    keys are missed there, in both packages."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    block = min(block, S)
+    pad_q = (-S) % block
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, pad_q))
+    nq = (S + pad_q) // block
+    band = min(S, ((window + block + block - 1) // block) * block)
+    # pad kv front (band) and back (q padding) so every slice is in range
+    k = F.pad(k, (0, 0, band, pad_q))
+    v = F.pad(v, (0, 0, band, pad_q))
+    scale = D ** -0.5
+    ar_q = torch.arange(block, device=q.device)[:, None]
+    ar_k = torch.arange(band, device=q.device)[None, :]
+    outs = []
+    for i in range(nq):
+        q0 = i * block
+        k0 = q0 + block                 # band ends at q-block end (+pad)
+        kb = k[:, :, k0:k0 + band].float()
+        vb = v[:, :, k0:k0 + band].float()
+        qg = (q[:, :, q0:q0 + block].float() * scale).reshape(
+            B, Hkv, G, block, D)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb)
+        q_ids = q0 + ar_q
+        k_ids = (q0 + block - band) + ar_k
+        mask = ((k_ids <= q_ids) & (k_ids > q_ids - window - 1)
+                & (k_ids >= 0) & (k_ids < S))
+        s = torch.where(mask, s, -1e30)
+        p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+        o = torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
+        outs.append(o.reshape(B, H, block, D))
+    return torch.cat(outs, dim=2)[:, :, :S].to(q.dtype)
+
+
+def banded_attention(q, k, v, *, causal, window, block=1024):
+    """Causal-prefix q-block loop: q block i only touches kv[: (i+1)*block]
+    (or its window band) -- S^2/2 FLOPs instead of S^2."""
+    S = q.shape[2]
+    block = min(block, S)
+    outs = []
+    for q0 in range(0, S, block):
+        q1 = min(q0 + block, S)
+        k0 = max(0, q0 - window) if window is not None else 0
+        k1 = q1 if causal else S
+        outs.append(chunked_attention(
+            q[:, :, q0:q1], k[:, :, k0:k1], v[:, :, k0:k1], causal=causal,
+            window=window, chunk=block, q_offset=q0 - k0))
+    return torch.cat(outs, dim=2)
+
+
 def attention_apply(p, x, cfg, *, causal=True, window=None, positions=None,
                     impl="chunked", use_rope=True):
     """Full-sequence (prefill) attention.  Returns (out, (k, v)) with k, v
@@ -163,17 +253,19 @@ def attention_apply(p, x, cfg, *, causal=True, window=None, positions=None,
     vh = v.transpose(1, 2)
     if impl == "chunked":
         out = chunked_attention(qh, kh, vh, causal=causal, window=window)
+    elif impl == "windowed" and window is not None and causal:
+        out = windowed_attention(qh, kh, vh, window=window)
+    elif impl == "windowed":
+        out = chunked_attention(qh, kh, vh, causal=causal, window=window)
+    elif impl == "banded":
+        out = banded_attention(qh, kh, vh, causal=causal, window=window)
     elif impl == "pallas":
         from repro_torch.kernels.flash_attention import flash_attention
         out = flash_attention(qh, kh, vh, causal=causal, window=window)
-    elif impl in ("banded", "windowed"):
-        raise NotImplementedError(
-            f"attention_impl={impl!r} is not ported; use 'chunked' or "
-            f"'pallas' (the flash attention kernel)")
     else:
         raise ValueError(impl)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.d_head)
-    return out @ p["wo"], (kh, vh)
+    return _mm(out, p["wo"]), (kh, vh)
 
 
 def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, window=None,
@@ -198,20 +290,22 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, window=None,
     groups = cfg.n_heads // cfg.n_kv_heads
     Smax = cache_k.shape[2]
     scale = cfg.d_head ** -0.5
-    # grouped-query einsum: the G-times-repeated KV is never materialized
+    # grouped-query einsum: the G-times-repeated KV is never materialized;
+    # operands in the cache's dtype, products and sums in float32 (the
+    # reference's preferred_element_type)
     qg = (qh * scale).reshape(B, cfg.n_kv_heads, groups, cfg.d_head)
-    s = torch.einsum("bhgd,bhkd->bhgk", qg.to(cache_k.dtype),
-                     cache_k).float()
+    s = torch.einsum("bhgd,bhkd->bhgk", qg.to(cache_k.dtype).float(),
+                     cache_k.float())
     ids = torch.arange(Smax, device=x.device)
     mask = ids[None, :] <= pos_b[:, None]                 # [B, Smax]
     if window is not None:
         mask = mask & (ids[None, :] > pos_b[:, None] - window - 1)
     s = torch.where(mask[:, None, None, :], s, -1e30)
     pw = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bhkd->bhgd", pw.to(cache_v.dtype),
-                       cache_v).float()
+    out = torch.einsum("bhgk,bhkd->bhgd", pw.to(cache_v.dtype).float(),
+                       cache_v.float())
     out = out.to(x.dtype).reshape(B, 1, cfg.n_heads * cfg.d_head)
-    return out @ p["wo"], cache_k, cache_v
+    return _mm(out, p["wo"]), cache_k, cache_v
 
 
 # --------------------------------------------------------------------------
@@ -232,15 +326,157 @@ def _gelu(x):
 
 
 def mlp_apply(p, x, act="silu"):
-    up = x @ p["w_up"]
+    up = _mm(x, p["w_up"])
     if "w_gate" in p:
-        gate = x @ p["w_gate"]
+        gate = _mm(x, p["w_gate"])
         h = (F.silu(gate) if act == "silu" else _gelu(gate)) * up
     else:
         h = _gelu(up) if act == "gelu" else F.silu(up)
-    return h @ p["w_down"]
+    return _mm(h, p["w_down"])
+
+
+# --------------------------------------------------------------------------
+# MoE (sort-based dispatch, capacity-bounded -- Switch/MegaBlocks style)
+# --------------------------------------------------------------------------
+
+
+def moe_init(gen, d_model, d_ff, n_experts, gated=True, shared_expert=False,
+             device=None):
+    """The router ``[d, E]`` (normal / sqrt(d)), the experts' ``w_up``,
+    ``w_down`` (and ``w_gate``) ``[E, in, out]`` (normal / sqrt(d_model),
+    as the reference scales all three) and, with ``shared_expert``, a
+    ``shared`` MLP."""
+    p = {"router": dense_param(gen, d_model, n_experts, device=device),
+         "w_up": expert_param(gen, n_experts, d_model, d_ff, d_model,
+                              device),
+         "w_down": expert_param(gen, n_experts, d_ff, d_model, d_model,
+                                device)}
+    if gated:
+        p["w_gate"] = expert_param(gen, n_experts, d_model, d_ff, d_model,
+                                   device)
+    if shared_expert:
+        p["shared"] = mlp_init(gen, d_model, d_ff, gated=gated,
+                               device=device)
+    return p
+
+
+def stable_top_k(probs, k):
+    """``jax.lax.top_k`` over the last axis: the k largest values in
+    descending order, ties broken toward the lower index (a stable
+    descending sort; ``torch.topk`` leaves the order of ties open)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(S, top_k, n_experts, capacity_factor) -> int:
+    """Slots per expert and example: ``int(cf * S * k / E)`` (``S * k``,
+    dropless, when ``cf <= 0``) rounded up to a multiple of 8, >= 8."""
+    if capacity_factor <= 0:
+        C = S * top_k
+    else:
+        C = int(capacity_factor * S * top_k / n_experts)
+    return max(8, ((C + 7) // 8) * 8)
+
+
+def moe_route(p, x, k, capacity_factor):
+    """The routing of :func:`moe_apply`.  Returns (probs [B,S,E] float32,
+    choices [B,S,k], C, route), route being the per-example expert-sorted
+    entries ``(t_s, g_s, keep, slot)``, each [B, S*k]: token, float32
+    gate, kept under capacity, buffer slot."""
+    B, S, _ = x.shape
+    E = p["w_up"].shape[0]
+    logits = _mm(x, p["router"])                          # [B, S, E]
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_vals, choices = stable_top_k(probs, k)            # [B, S, k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    C = moe_capacity(S, k, E, capacity_factor)
+    flat_e = choices.reshape(B, S * k)
+    flat_t = torch.arange(S, device=x.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    e_s = torch.gather(flat_e, 1, order)
+    t_s = flat_t[order]
+    g_s = torch.gather(gate_vals.reshape(B, S * k), 1, order)
+    idx = torch.arange(S * k, device=x.device)
+    experts = torch.arange(E, device=x.device).expand(B, E).contiguous()
+    first = torch.searchsorted(e_s, experts)               # left side
+    rank = idx - torch.gather(first, 1, e_s)
+    keep = rank < C
+    slot = e_s * C + rank.clamp_max(C - 1)
+    return probs, choices, C, (t_s, g_s, keep, slot)
+
+
+def moe_dispatch(x, route, n_experts, C):
+    """x [B, S, d] into the [B, E, C, d] expert buffers: each kept entry
+    of ``route`` (``moe_route``'s dispatch tuple) at its slot, a dropped
+    one as zeros into slot ``E*C-1``."""
+    B, S, d = x.shape
+    t_s, _, keep, slot = route
+    E = n_experts
+    rows = (torch.arange(B, device=x.device) * (E * C))[:, None]
+    tgt = torch.where(keep, slot, E * C - 1) + rows        # [B, S*k]
+    src = torch.gather(x, 1, t_s[..., None].expand(*t_s.shape, d))
+    src = torch.where(keep[..., None], src, 0.0)
+    buf = torch.zeros((B * E * C, d), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, tgt.reshape(-1), src.reshape(-1, d))
+    return buf.reshape(B, E, C, d)
+
+
+def moe_combine(eo, route, S):
+    """The expert outputs ``eo`` [B, E*C, d] back onto the S tokens: each
+    kept entry's slot times its gate, summed per token."""
+    B, _, d = eo.shape
+    t_s, g_s, keep, slot = route
+    eo_g = torch.gather(eo, 1, slot[..., None].expand(*slot.shape, d))
+    contrib = torch.where(keep[..., None],
+                          eo_g * g_s[..., None].to(eo.dtype), 0.0)
+    tok = t_s + (torch.arange(B, device=eo.device) * S)[:, None]
+    out = torch.zeros((B * S, d), dtype=eo.dtype, device=eo.device)
+    out.index_add_(0, tok.reshape(-1), contrib.reshape(-1, d))
+    return out.reshape(B, S, d)
+
+
+def moe_apply(p, x, *, top_k, capacity_factor=1.25, act="gelu"):
+    """x: [B, S, d].  Per-example sort-based dispatch into [B, E, C, d]
+    expert buffers (group-limited capacity, group = one example row), as
+    the reference's.  ``capacity_factor <= 0`` selects dropless dispatch
+    (C = S * top_k).  A dropped entry scatters zeros into slot ``E*C-1``.
+
+    Every kept slot receives exactly one token (plus exact zeros) and each
+    token at most ``top_k`` gated terms, so with ``top_k <= 2`` both
+    ``index_add_`` scatters give the same bits in any order of addition.
+
+    Returns (out, aux_loss), aux the Switch load-balance loss
+    ``E * sum_e mean_prob_e * routed_fraction_e``."""
+    B, S, d = x.shape
+    E = p["w_up"].shape[0]
+    probs, choices, C, route = moe_route(p, x, top_k, capacity_factor)
+    buf = moe_dispatch(x, route, E, C)
+
+    up = _einsum("becd,edf->becf", buf, p["w_up"])
+    if "w_gate" in p:
+        gate = _einsum("becd,edf->becf", buf, p["w_gate"])
+        h = (_gelu(gate) if act == "gelu" else F.silu(gate)) * up
+    else:
+        h = _gelu(up)
+    eo = _einsum("becf,efd->becd", h, p["w_down"]).reshape(B, E * C, d)
+    out = moe_combine(eo, route, S)
+
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], x.reshape(B * S, d),
+                              act=act).reshape(B, S, d)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e
+    me = probs.mean((0, 1))                               # [E]
+    fe = torch.zeros(E, device=x.device).index_add_(
+        0, choices.reshape(-1), torch.ones(B * S * top_k, device=x.device)
+    ) / (B * S * top_k)
+    aux = E * torch.sum(me * fe)
+    return out, aux
 
 
 __all__ = ["attention_apply", "attention_decode", "attention_init",
-           "chunked_attention", "layer_norm", "layer_norm_init", "mlp_apply",
-           "mlp_init", "rms_norm", "rms_norm_init", "rope"]
+           "banded_attention", "chunked_attention", "layer_norm",
+           "layer_norm_init", "mlp_apply", "mlp_init", "moe_apply",
+           "moe_capacity", "moe_combine", "moe_dispatch", "moe_init",
+           "moe_route", "rms_norm",
+           "rms_norm_init", "rope", "stable_top_k", "windowed_attention"]

@@ -1,13 +1,16 @@
 """Public model API: config, init, forward, loss, prefill/decode, for the
-dense family.
+dense and MoE families.
 
 Counterpart of ``repro/models/model.py``.  :class:`ModelConfig` has every
 field of the reference's (dtypes are torch dtypes), so a reference config
 carries over unchanged.  Parameters are an :class:`LMParams` module of
 trainable parameters; the functions take it as the reference's take its
-parameter pytree.  Families other than ``"dense"`` (MoE, hybrid, SSM,
-enc-dec, VLM), learned absolute positions (whisper's) and
-``compute_dtype`` are not ported and raise ``NotImplementedError``.
+parameter pytree.  With ``cfg.compute_dtype`` set, :func:`forward`,
+:func:`prefill` and :func:`decode_step` first cast the parameters to it
+as the reference does (:func:`cast_for_compute`), so a training step
+differentiates through the cast into float32 masters.  The other
+families (hybrid, SSM, enc-dec, VLM) and learned absolute positions
+(whisper's) are not ported and raise ``NotImplementedError``.
 
 Entry points run on the CUDA device unless given ``device=...``
 (:func:`repro_torch.core.engine.resolve_device`).  Serve under
@@ -21,6 +24,7 @@ differentiates.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Any, Optional
 
 import torch
@@ -28,7 +32,8 @@ from torch import nn
 
 from repro_torch.core.engine import resolve_device
 from . import transformer as tf
-from .layers import layer_norm, layer_norm_init, rms_norm, rms_norm_init
+from .layers import (_mm, layer_norm, layer_norm_init, rms_norm,
+                     rms_norm_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,11 +70,12 @@ class ModelConfig:
     # hybrid (recurrentgemma)
     d_rnn: int = 0
     # execution knobs
-    attention_impl: str = "chunked"   # chunked | pallas (the flash kernel)
+    attention_impl: str = "chunked"   # chunked | banded | windowed | pallas
     assoc_scan: bool = False
     remat: bool = True                # recompute each repeat in backward
     param_dtype: Any = torch.float32
-    compute_dtype: Any = None
+    compute_dtype: Any = None         # e.g. torch.bfloat16: cast >=2D params
+                                      # for compute
     subquadratic: bool = False
 
     def __post_init__(self):
@@ -84,17 +90,18 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port can run ``cfg``."""
-    if cfg.family != "dense" or cfg.is_encdec or cfg.n_patches:
+    if (cfg.family not in ("dense", "moe") or cfg.is_encdec
+            or cfg.n_patches):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported (dense only)")
-    if cfg.compute_dtype is not None or cfg.learned_pos:
-        raise NotImplementedError("compute_dtype and learned positions are "
-                                  "not ported")
+            f"{cfg.name}: family {cfg.family!r} is not ported (dense and "
+            f"moe only)")
+    if cfg.learned_pos:
+        raise NotImplementedError("learned positions are not ported")
     tf.check_supported(cfg)
 
 
 class LMParams(nn.Module):
-    """The parameters of a dense LM: ``embed [vocab, d]``, ``lm_head
+    """The parameters of an LM: ``embed [vocab, d]``, ``lm_head
     [d, vocab]`` (None when tied to ``embed``), ``final_norm`` and
     ``stack``, an ``nn.ModuleList`` of
     :class:`repro_torch.models.transformer.Block`.  Every tensor is a
@@ -114,8 +121,9 @@ class LMParams(nn.Module):
 def init_params(seed: int, cfg: ModelConfig, device=None) -> LMParams:
     """Random parameters drawn on ``device`` from a ``torch.Generator``
     seeded with ``seed``: embeddings normal x 0.02 in ``cfg.param_dtype``,
-    weights normal / sqrt(fan-in), biases 0, norm scales 1 (the
-    reference's init; its JAX streams are not reproduced)."""
+    weights normal / sqrt(fan-in) (experts / sqrt(d_model)), biases 0,
+    norm scales 1 (the reference's init; its JAX streams are not
+    reproduced)."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -132,28 +140,67 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> LMParams:
 
 
 def count_params(cfg: ModelConfig) -> int:
-    """Parameter count of ``cfg``'s dense model, from shapes alone."""
+    """Parameter count of ``cfg``'s model, from shapes alone (an MoE
+    feed-forward: the router, every expert's three matrices and the
+    shared expert)."""
     check_supported(cfg)
     d, hd = cfg.d_model, cfg.d_head
     attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
     if cfg.qkv_bias:
         attn += hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
-    mlp = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    if cfg.n_experts > 0:
+        ffn = d * cfg.n_experts + cfg.n_experts * 3 * d * cfg.d_ff
+        ffn += 3 * d * cfg.d_ff if cfg.shared_expert else 0
+    else:
+        ffn = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
     norm = d if cfg.norm == "rms" else 2 * d
-    per_layer = attn + mlp + 2 * norm
+    per_layer = attn + ffn + 2 * norm
     head = 0 if cfg.tie_embeddings else d * cfg.vocab
     return cfg.vocab * d + head + norm + cfg.n_layers * per_layer
+
+
+def cast_for_compute(params: LMParams, cfg: ModelConfig):
+    """The parameters as the model computes with them: with
+    ``cfg.compute_dtype`` set, a view of ``params`` (the same attributes
+    and keys) whose tensors of two or more dimensions are cast to it;
+    ``params`` itself otherwise.  The casts are autograd ops: gradients
+    reach the float32 masters.
+
+    The reference casts the leaves of its parameter tree that have two or
+    more dimensions, and the layers of its scanned pattern repeats are
+    stacked there on a leading layer axis: their norm scales and biases
+    are 2-D and cast too.  Only ``final_norm`` and the unrolled tail
+    layers' (``n_layers % len(block_pattern)``) 1-D tensors stay float32.
+    So here too."""
+    cd = cfg.compute_dtype
+    if cd is None:
+        return params
+    n_scan = cfg.n_layers // len(cfg.block_pattern) * len(cfg.block_pattern)
+
+    def tree(p, min_dim):
+        return {k: tree(v, min_dim) if isinstance(v, nn.ParameterDict)
+                else (v.to(cd) if v.dim() >= min_dim else v)
+                for k, v in p.items()}
+    stack = [SimpleNamespace(kind=blk.kind, **{
+        n: tree(getattr(blk, n), 1 if i < n_scan else 2)
+        for n in ("norm1", "mixer", "norm2", "ffn")})
+        for i, blk in enumerate(params.stack)]
+    return SimpleNamespace(
+        embed=params.embed.to(cd),
+        lm_head=None if params.lm_head is None else params.lm_head.to(cd),
+        final_norm=tree(params.final_norm, 2), stack=stack)
 
 
 def _final(params: LMParams, x, cfg):
     x = (rms_norm if cfg.norm == "rms" else layer_norm)(params.final_norm, x)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x @ head
+    return _mm(x, head)
 
 
 def forward(params: LMParams, batch, cfg: ModelConfig):
     """Returns (logits [B, S, vocab], aux_loss)."""
     check_supported(cfg)
+    params = cast_for_compute(params, cfg)
     x = params.embed[batch["tokens"]]
     x, aux = tf.stack_apply(params.stack, x, cfg, causal=True)
     return _final(params, x, cfg), aux
@@ -187,6 +234,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
 def prefill(params: LMParams, batch, cfg: ModelConfig, max_len: int):
     """Returns (last-token logits [B, vocab], cache padded to max_len)."""
     check_supported(cfg)
+    params = cast_for_compute(params, cfg)
     x = params.embed[batch["tokens"]]
     x, cache = tf.stack_prefill(params.stack, x, cfg, max_len, causal=True)
     return _final(params, x[:, -1:], cfg)[:, 0], cache
@@ -196,11 +244,12 @@ def decode_step(params: LMParams, cache, tokens, pos, cfg: ModelConfig):
     """tokens: [B] int; pos: int or per-slot [B] write positions.  The
     cache is updated in place.  Returns (logits [B, vocab], cache)."""
     check_supported(cfg)
+    params = cast_for_compute(params, cfg)
     x = params.embed[tokens][:, None]                # [B, 1, d]
     x, cache = tf.stack_decode(params.stack, cache, x, cfg, pos)
     return _final(params, x, cfg)[:, 0], cache
 
 
-__all__ = ["LMParams", "ModelConfig", "check_supported", "count_params",
-           "decode_step", "forward", "init_cache", "init_params", "loss_fn",
-           "prefill"]
+__all__ = ["LMParams", "ModelConfig", "cast_for_compute", "check_supported",
+           "count_params", "decode_step", "forward", "init_cache",
+           "init_params", "loss_fn", "prefill"]

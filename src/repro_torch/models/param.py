@@ -21,6 +21,16 @@ def dense_param(gen: torch.Generator, in_dim: int, out_dim: int,
     return w.mul_(in_dim ** -0.5)
 
 
+def expert_param(gen: torch.Generator, n_experts: int, in_dim: int,
+                 out_dim: int, scale_dim: int, device=None) -> torch.Tensor:
+    """``[n_experts, in_dim, out_dim]`` float32 normal draws times
+    ``1 / sqrt(scale_dim)`` (the reference scales every expert matrix by
+    ``d_model``)."""
+    w = torch.randn((n_experts, in_dim, out_dim), generator=gen,
+                    device=device)
+    return w.mul_(scale_dim ** -0.5)
+
+
 def bias_param(dim: int, device=None) -> torch.Tensor:
     return torch.zeros(dim, device=device)
 
@@ -29,4 +39,4 @@ def scale_param(dim: int, device=None) -> torch.Tensor:
     return torch.ones(dim, device=device)
 
 
-__all__ = ["bias_param", "dense_param", "scale_param"]
+__all__ = ["bias_param", "dense_param", "expert_param", "scale_param"]

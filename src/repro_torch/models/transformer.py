@@ -1,15 +1,17 @@
-"""Block assembly: the dense stack as an ``nn.ModuleList`` of blocks.
+"""Block assembly: the stack as an ``nn.ModuleList`` of blocks.
 
 Counterpart of ``repro/models/transformer.py`` for blocks of kind
-``"attn"`` and ``"local"`` (sliding window).  The reference stacks the
+``"attn"`` and ``"local"`` (sliding window), with an MLP or, when
+``cfg.n_experts > 0``, an MoE feed-forward.  The reference stacks the
 parameters of each position of ``cfg.block_pattern`` on a leading layer
 axis and runs a ``lax.scan`` over the repeats, plus an unrolled tail;
 here every layer is its own :class:`Block` and a Python loop walks them in
 the same order (layer ``i`` has kind ``pattern[i % len(pattern)]``).  Under
 grad with ``cfg.remat``, each repeat of the pattern is recomputed in the
 backward pass, as the reference's ``jax.checkpoint`` of its scan body.
-Recurrent (``rglru``, ``rwkv``) blocks and MoE feed-forwards are not
-ported and raise ``NotImplementedError``.
+The MoE load-balance loss of every block is summed into ``aux`` there;
+decoding discards it, as the reference does.  Recurrent (``rglru``,
+``rwkv``) blocks are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,18 +23,24 @@ from torch.utils.checkpoint import checkpoint
 
 from .layers import (attention_apply, attention_decode, attention_init,
                      layer_norm, layer_norm_init, mlp_apply, mlp_init,
-                     rms_norm, rms_norm_init)
+                     moe_apply, moe_init, rms_norm, rms_norm_init)
 
 KINDS = ("attn", "local")
 
 
 def _pdict(tree: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
+    """A (nested) dict of tensors as a ``ParameterDict`` of trainable
+    parameters; a nested dict (the MoE's ``shared`` MLP) becomes a nested
+    ``ParameterDict``, named ``ffn.shared.w_up`` and so on."""
+    return nn.ParameterDict({
+        k: _pdict(v) if isinstance(v, dict) else nn.Parameter(v)
+        for k, v in tree.items()})
 
 
 class Block(nn.Module):
     """One pre-norm residual block: ``norm1``, ``mixer`` (attention),
-    ``norm2``, ``ffn`` (MLP), each a ``ParameterDict`` with the
+    ``norm2``, ``ffn`` (MLP, or MoE: ``router``, ``[E, in, out]`` experts
+    and an optional ``shared`` MLP), each a ``ParameterDict`` with the
     reference's keys."""
 
     def __init__(self, kind: str, params: dict):
@@ -45,30 +53,42 @@ class Block(nn.Module):
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config the dense port cannot
-    run."""
+    """Raise ``NotImplementedError`` for a block pattern with kinds the
+    port cannot run (the recurrent ``rglru`` and ``rwkv``)."""
     if any(k not in KINDS for k in cfg.block_pattern):
         raise NotImplementedError(
             f"block pattern {cfg.block_pattern} holds unported kinds "
             f"(ported: {KINDS})")
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE feed-forwards are not ported")
 
 
 def block_init(gen, kind, cfg, device=None) -> Block:
+    """A block's parameters, drawn from ``gen`` mixer first, then ffn."""
     norm_init = rms_norm_init if cfg.norm == "rms" else layer_norm_init
-    return Block(kind, {
-        "norm1": norm_init(cfg.d_model, device),
-        "norm2": norm_init(cfg.d_model, device),
-        "mixer": attention_init(gen, cfg.d_model, cfg.n_heads,
-                                cfg.n_kv_heads, cfg.d_head, cfg.qkv_bias,
-                                device),
-        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
-                        device=device)})
+    mixer = attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.d_head, cfg.qkv_bias, device)
+    if cfg.n_experts > 0:
+        ffn = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, gated=True,
+                       shared_expert=cfg.shared_expert, device=device)
+    else:
+        ffn = mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
+                       device=device)
+    return Block(kind, {"norm1": norm_init(cfg.d_model, device),
+                        "norm2": norm_init(cfg.d_model, device),
+                        "mixer": mixer, "ffn": ffn})
 
 
 def _norm(cfg):
     return rms_norm if cfg.norm == "rms" else layer_norm
+
+
+def _ffn(blk: Block, h, cfg):
+    """The block's feed-forward: (out, aux), aux 0 for an MLP."""
+    if cfg.n_experts > 0:
+        return moe_apply(blk.ffn, h, top_k=cfg.top_k,
+                         capacity_factor=cfg.moe_capacity_factor,
+                         act=cfg.act)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return mlp_apply(blk.ffn, h, act=cfg.act), aux
 
 
 def _pad_kv(kv, max_len):
@@ -92,9 +112,8 @@ def block_apply(blk: Block, x, cfg, *, causal=True, impl=None, max_len=None):
     if max_len is not None:
         cache = {"k": _pad_kv(kh, max_len), "v": _pad_kv(vh, max_len)}
     x = x + m
-    h = norm(blk.norm2, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp_apply(blk.ffn, h, act=cfg.act), cache, aux
+    f, aux = _ffn(blk, norm(blk.norm2, x), cfg)
+    return x + f, cache, aux
 
 
 def block_decode(blk: Block, x, cfg, cache, pos):
@@ -105,8 +124,8 @@ def block_decode(blk: Block, x, cfg, cache, pos):
     m, ck, cv = attention_decode(blk.mixer, h, cache["k"], cache["v"], pos,
                                  cfg, window=win, use_rope=cfg.use_rope)
     x = x + m
-    h = norm(blk.norm2, x)
-    return x + mlp_apply(blk.ffn, h, act=cfg.act), {"k": ck, "v": cv}
+    f, _ = _ffn(blk, norm(blk.norm2, x), cfg)
+    return x + f, {"k": ck, "v": cv}
 
 
 def block_cache_init(kind, cfg, batch, max_len, dtype=torch.float32,

@@ -953,3 +953,96 @@ def test_training_steps_on_the_card_match_the_cpu(cuda):
         np.testing.assert_allclose(a.detach().cpu().numpy(),
                                    c.detach().numpy(), atol=2e-3,
                                    err_msg=name)
+
+
+def _ftz(t):
+    """Subnormal float32 entries flushed to (signed) zero."""
+    return torch.where(t.abs() < torch.finfo(torch.float32).tiny,
+                       t * 0.0, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-scout-17b-a16e"])
+def test_moe_apply_with_drops_on_the_card_matches_the_cpu(cuda, arch):
+    """``moe_apply`` on the card against its CPU run, at the full configs'
+    capacity factor 1.25 on inputs skewed toward a few experts (so tokens
+    drop).  Inputs and router are small multiples of 2^-6, so the router
+    logits are exact on both devices and the routing (choices, sorted
+    tokens, kept mask, slots) is bitwise equal.  The dispatch and the
+    combine are scatter-adds of one token (plus exact zeros) a slot and
+    at most top_k <= 2 gated terms a token, so they are bitwise equal too
+    (the combine fed the CPU's expert outputs and gates), and two card
+    runs of the whole layer are bitwise equal.  The whole layer's output
+    is held at atol 1e-5 (its GEMMs sum in another order on each
+    device).  Integer router logits (spread ~50) give gates so small that
+    gated terms fall below float32's normal range: the card's float
+    atomics flush those to zero, the CPU keeps them, so there the card
+    equals the CPU's combine of the flushed terms."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              moe_capacity_factor=1.25)
+    p_cpu = init_params(0, cfg, "cpu").stack[0].ffn
+    g = torch.Generator().manual_seed(3)
+    router = torch.randint(-3, 4, p_cpu["router"].shape, generator=g).float()
+    x_cpu = (torch.randint(-2, 3, (3, 64, cfg.d_model), generator=g)
+             + torch.randint(-1, 2, (cfg.d_model,), generator=g)).float()
+    k, cf, E = cfg.top_k, cfg.moe_capacity_factor, cfg.n_experts
+    eo = torch.randn(3, E * 64 * k, cfg.d_model, generator=g)
+
+    def on(device, p):
+        return {n: (v.to(device) if isinstance(v, torch.Tensor)
+                    else {m: w.to(device) for m, w in v.items()})
+                for n, v in p.items()}
+
+    def combine_ftz(eo, route, S):
+        # moe_combine with its gated terms flushed before the scatter
+        B, _, d = eo.shape
+        t_s, g_s, keep, slot = route
+        eo_g = torch.gather(eo, 1, slot[..., None].expand(*slot.shape, d))
+        terms = _ftz(torch.where(keep[..., None], eo_g * g_s[..., None],
+                                 0.0))
+        tok = t_s + (torch.arange(B) * S)[:, None]
+        out = torch.zeros(B * S, d).index_add_(0, tok.reshape(-1),
+                                               terms.reshape(-1, d))
+        return _ftz(out).reshape(B, S, d)
+
+    for scale, extreme in ((2.0 ** -6, False), (1.0, True)):
+        with torch.no_grad():
+            p_cpu["router"].copy_(router * scale)
+        p_card, x_card = on(cuda, p_cpu), x_cpu.to(cuda)
+        with torch.inference_mode():
+            _, choices, C, route = L.moe_route(p_cpu, x_cpu, k, cf)
+            r_card = L.moe_route(p_card, x_card, k, cf)
+            assert torch.equal(choices, r_card[1].cpu()) and C == r_card[2]
+            for a, b in zip(route, r_card[3]):
+                if a.dtype != torch.float32:                   # t, keep, slot
+                    assert torch.equal(a, b.cpu())
+            assert int((~route[2]).sum()) > 0                  # drops occur
+            assert torch.equal(L.moe_dispatch(x_cpu, route, E, C),
+                               L.moe_dispatch(x_card, r_card[3], E,
+                                              C).cpu())
+            eo_c = eo[:, :E * C]
+            on_card = L.moe_combine(eo_c.to(cuda), tuple(
+                t.to(cuda) for t in route), 64).cpu()
+            if extreme:
+                # top-2 gates reach below 2^-126 times the expert outputs;
+                # top-1 gates are all 1
+                flushed = combine_ftz(eo_c, route, 64)
+                exact = L.moe_combine(eo_c, route, 64)
+                assert torch.equal(flushed, exact) == (k == 1)
+                assert torch.equal(on_card, flushed)
+                continue
+            assert torch.equal(on_card, L.moe_combine(eo_c, route, 64))
+            out_cpu, aux_cpu = L.moe_apply(p_cpu, x_cpu, top_k=k,
+                                           capacity_factor=cf, act=cfg.act)
+            runs = [L.moe_apply(p_card, x_card, top_k=k, capacity_factor=cf,
+                                act=cfg.act) for _ in range(2)]
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
+        np.testing.assert_allclose(runs[0][0].cpu().numpy(),
+                                   out_cpu.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(float(runs[0][1]), float(aux_cpu),
+                                   rtol=1e-6)

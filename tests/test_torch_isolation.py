@@ -67,7 +67,13 @@ def test_every_module_imports_with_jax_blocked():
                  "repro_torch.data.pipeline",
                  "repro_torch.train.train_step",
                  "repro_torch.train.fault",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train",
+                 "repro_torch.configs.phi3_medium_14b",
+                 "repro_torch.configs.command_r_35b",
+                 "repro_torch.configs.gemma3_12b",
+                 "repro_torch.configs.grok1_314b",
+                 "repro_torch.configs.llama4_scout_17b_a16e",
+                 "repro_torch.configs.shapes"):
         assert name in names, name
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

@@ -25,7 +25,6 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.models import (count_params, decode_step, forward,
                                 init_cache, init_params, prefill)
-from repro_torch.models import layers
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -154,12 +153,20 @@ def test_init_and_cache_shapes():
 
 
 def test_unported_variants_raise(lm):
+    """What the port still refuses: recurrent blocks (rwkv, rglru), the
+    enc-dec and VLM families and learned absolute positions.  (banded,
+    windowed, MoE and compute_dtype are ported:
+    tests/test_torch_lm_families.py.)"""
     rc, pc, rp, pp = lm
-    x = torch.zeros(1, 4, pc.d_model)
-    for impl in ("banded", "windowed"):
-        with pytest.raises(NotImplementedError):
-            layers.attention_apply(pp.stack[0].mixer, x, pc, impl=impl)
-    for kw in ({"family": "moe", "n_experts": 4}, {"block_pattern": ("rwkv",)},
-               {"compute_dtype": torch.bfloat16}):
+    for kw in ({"block_pattern": ("rwkv",)},
+               {"block_pattern": ("rglru", "rglru", "local"), "d_rnn": 64},
+               {"family": "encdec", "n_enc_layers": 2, "enc_seq": 16,
+                "dec_max": 32},
+               {"family": "vlm", "n_patches": 4},
+               {"learned_pos": 64}):
         with pytest.raises(NotImplementedError):
             init_params(0, dataclasses.replace(pc, **kw), device="cpu")
+    for name in ("rwkv6-7b", "recurrentgemma-2b", "whisper-medium",
+                 "llava-next-34b"):
+        with pytest.raises(NotImplementedError):
+            get_config(name)
