@@ -3,12 +3,10 @@
 
 Counterpart of ``repro/configs/__init__.py``: ``get_config(name)`` returns
 the full published config, ``get_config(name, smoke=True)`` the reduced
-same-family variant the CPU tests use.  Of the reference's ten
-architectures the dense (``phi3-medium-14b``, ``qwen2.5-14b``,
-``command-r-35b``, ``gemma3-12b``) and MoE (``grok-1-314b``,
-``llama4-scout-17b-a16e``) ones have a module here; the recurrent,
-enc-dec and VLM ones, whose layers are not ported, raise
-``NotImplementedError``.  :mod:`.shapes` holds the input-shape cells.
+same-family variant the CPU tests use.  Every one of the reference's ten
+architectures has a module here: dense, MoE, hybrid (RG-LRU), SSM
+(RWKV-6), enc-dec (whisper) and VLM (llava).  :mod:`.shapes` holds the
+input-shape cells.
 """
 
 from __future__ import annotations
@@ -42,17 +40,11 @@ ALIASES = {
     "llava-next-34b": "llava_next_34b",
 }
 
-PORTED = ("grok1_314b", "llama4_scout_17b_a16e", "phi3_medium_14b",
-          "qwen2_5_14b", "command_r_35b", "gemma3_12b")
-
 
 def get_config(name: str, smoke: bool = False):
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}")
-    if mod_name not in PORTED:
-        raise NotImplementedError(
-            f"{name}: not ported (ported: {', '.join(PORTED)})")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.SMOKE if smoke else mod.CONFIG
 
@@ -61,4 +53,4 @@ def all_arch_names():
     return list(ALIASES.keys())
 
 
-__all__ = ["ALIASES", "ARCHS", "PORTED", "all_arch_names", "get_config"]
+__all__ = ["ALIASES", "ARCHS", "all_arch_names", "get_config"]

@@ -17,8 +17,11 @@ Family adjustments:
 The reference returns ``jax.ShapeDtypeStruct`` stand-ins; here a spec is a
 tensor on the ``meta`` device, which has a shape and a dtype and holds no
 memory.  :func:`cache_specs` is :func:`repro_torch.models.init_cache` on
-that device: the port's cache layout (a list of ``{"k", "v"}`` per layer)
-with the reference's shapes and dtypes.
+that device: the port's cache layout (a dict per layer; for whisper
+``{"self", "cross"}``, a ``{"k", "v"}`` per decoder layer each) with the
+reference's shapes and dtypes.  llava's 576 patches do not fit the
+smoke-scale sequence of 64, where the reference's token spec has a
+negative length and a meta tensor cannot be made (ROADMAP finding 14).
 """
 
 from __future__ import annotations

@@ -138,22 +138,43 @@ def _layer(tree, r=None):
 def lm_params_from_jax(params, cfg, device=None):
     """The reference's LM parameter pytree (from ``repro.models.
     init_params``; JAX or numpy leaves) as the port's
-    :class:`repro_torch.models.LMParams` for the dense or MoE config
-    ``cfg``.  Leaves keep their dtype (bfloat16 too); an MoE block's
-    ``ffn`` carries the router, the ``[E, in, out]`` expert tensors and,
-    for a shared expert, the nested ``shared`` MLP.
+    :class:`repro_torch.models.LMParams` for ``cfg``.  Leaves keep their
+    dtype (bfloat16 too); nested dicts (an MoE block's ``shared`` expert,
+    RWKV's ``lora_mix`` and ``lora_w``) stay nested.
 
     The reference's ``stack`` holds ``"scan"``, one tree per position of
     ``cfg.block_pattern`` stacked over the pattern's repeats, and
     ``"tail"``, the unrolled remainder; layer ``r * len(pattern) + j`` is
     repeat ``r`` of position ``j``, then the tail follows.  They become
-    one ``nn.ModuleList`` of blocks in that order."""
+    one ``nn.ModuleList`` of blocks in that order.  The enc-dec family's
+    ``encoder`` and ``decoder`` are stacked whole on a leading layer axis
+    (no tail) and become one ``nn.ModuleList`` each."""
     from torch import nn
 
     from repro_torch.models import model as lm
     from repro_torch.models.transformer import Block, layer_kinds
-    lm.check_supported(cfg)
     device = resolve_device(device)
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return {k: tensors(v) for k, v in tree.items()}
+        return _t(tree, device)
+
+    def opt(key):
+        return _t(params[key], device) if key in params else None
+    head = (_t(params["embed"], device),
+            None if cfg.tie_embeddings else _t(params["lm_head"], device),
+            tensors(_layer(params["final_norm"])))
+    if cfg.is_encdec:
+        def layers(tree, n, make):
+            return nn.ModuleList(make(tensors(_layer(tree, r)))
+                                 for r in range(n))
+        return lm.LMParams(
+            *head, enc_pos=opt("enc_pos"), dec_pos=opt("dec_pos"),
+            encoder=layers(params["encoder"], cfg.n_enc_layers,
+                           lambda t: Block("attn", t)),
+            decoder=layers(params["decoder"], cfg.n_layers, lm.EncDecBlock),
+            enc_norm=tensors(_layer(params["enc_norm"])))
     pat = cfg.block_pattern
     n_rep = cfg.n_layers // len(pat)
     trees = [_layer(params["stack"]["scan"][j], r) for r in range(n_rep)
@@ -163,17 +184,9 @@ def lm_params_from_jax(params, cfg, device=None):
     if len(trees) != len(kinds):
         raise ValueError(f"{len(trees)} layers in the tree, {len(kinds)} in "
                          f"{cfg.name}")
-
-    def tensors(tree):
-        if isinstance(tree, dict):
-            return {k: tensors(v) for k, v in tree.items()}
-        return _t(tree, device)
     stack = nn.ModuleList(Block(kind, tensors(t))
                           for kind, t in zip(kinds, trees))
-    return lm.LMParams(
-        _t(params["embed"], device),
-        None if cfg.tie_embeddings else _t(params["lm_head"], device),
-        tensors(_layer(params["final_norm"])), stack)
+    return lm.LMParams(*head, stack, pos=opt("pos"))
 
 
 def lm_tree_to_jax_layout(tree, cfg) -> dict:
@@ -184,9 +197,12 @@ def lm_tree_to_jax_layout(tree, cfg) -> dict:
     moments.  Returns the reference's parameter pytree of numpy arrays:
     ``embed``, ``lm_head`` (unless tied), ``final_norm`` and ``stack`` with
     its ``"scan"`` (per pattern position, stacked over the repeats) and
-    ``"tail"`` layers; a dotted name nests (``stack.0.ffn.shared.w_up``
-    is the MoE's shared expert).  numpy has no bfloat16 of its own, so a
-    bfloat16 tensor comes back as float32 (exactly)."""
+    ``"tail"`` layers, or for the enc-dec family ``encoder`` and
+    ``decoder`` stacked whole beside ``enc_pos``, ``dec_pos`` and
+    ``enc_norm``; a dotted name nests (``stack.0.ffn.shared.w_up`` is the
+    MoE's shared expert, ``stack.0.mixer.lora_mix.a`` an RWKV LoRA).
+    numpy has no bfloat16 of its own, so a bfloat16 tensor comes back as
+    float32 (exactly)."""
     from torch import nn
 
     flat = (dict(tree.named_parameters()) if isinstance(tree, nn.Module)
@@ -199,14 +215,19 @@ def lm_tree_to_jax_layout(tree, cfg) -> dict:
             node = node.setdefault(part, {})
         t = t.detach().cpu()
         node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    layers = nested.pop("stack")
-    pat = len(cfg.block_pattern)
-    n_rep = cfg.n_layers // pat
 
     def stacked(trees):
         if isinstance(trees[0], dict):
             return {k: stacked([t[k] for t in trees]) for k in trees[0]}
         return np.stack(trees)
+    if cfg.is_encdec:
+        for part, n in (("encoder", cfg.n_enc_layers),
+                        ("decoder", cfg.n_layers)):
+            nested[part] = stacked([nested[part][str(i)] for i in range(n)])
+        return nested
+    layers = nested.pop("stack")
+    pat = len(cfg.block_pattern)
+    n_rep = cfg.n_layers // pat
     scan = tuple(stacked([layers[str(r * pat + j)] for r in range(n_rep)])
                  if n_rep else None for j in range(pat))
     tail = tuple(layers[str(i)] for i in range(n_rep * pat, cfg.n_layers))

@@ -15,6 +15,12 @@ raises without a card; ``cpu`` runs on the host).  Features:
     (:func:`repro_torch.train.fault.run_with_recovery`),
   * injected stragglers (--straggle-at N) and z-score detection.
 
+``--arch`` takes every architecture of :mod:`repro_torch.configs`; the
+synthetic data holds tokens and labels only, as the reference's, so llava
+trains on text and whisper, whose encoder needs ``frames``, raises
+``KeyError`` at its first step, as the reference does (ROADMAP finding
+13).
+
 The reference lays its state out over a host mesh of --data x --model
 devices, or runs unsharded when the host lacks them.  The port runs
 unsharded on one device; --data and --model are accepted and change

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .param import bias_param, dense_param, expert_param, scale_param
 
@@ -52,6 +53,24 @@ def _mm(a, b):
 def _einsum(eq, a, b):
     a, b = _promoted(a, b)
     return torch.einsum(eq, a, b)
+
+
+def scan_in_chunks(steps, state, xs, remat=True, chunk=64):
+    """``steps(state, *xs) -> (state, ys)`` over the leading (time) axis
+    of the tensors ``xs``, for the recurrent blocks' scans.  Under grad
+    with ``remat``, each run of ``chunk`` steps goes through
+    ``torch.utils.checkpoint``: the backward pass keeps one state a chunk
+    and recomputes the steps inside, as the reference's ``lax.scan`` of a
+    ``jax.checkpoint``-ed chunk step does.  Returns (state, ys
+    concatenated over time)."""
+    if not (remat and torch.is_grad_enabled()):
+        return steps(state, *xs)
+    parts = []
+    for t0 in range(0, xs[0].shape[0], chunk):
+        state, ys = checkpoint(steps, state, *(x[t0:t0 + chunk] for x in xs),
+                               use_reentrant=False)
+        parts.append(ys)
+    return state, torch.cat(parts)
 
 
 # --------------------------------------------------------------------------
@@ -269,13 +288,17 @@ def attention_apply(p, x, cfg, *, causal=True, window=None, positions=None,
 
 
 def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, window=None,
-                     use_rope=True):
+                     use_rope=True, drop_out_of_range=False):
     """One-token decode.  x: [B, 1, d]; cache_k/v: [B, Hkv, Smax, D];
     pos: int or per-slot [B] positions (continuous batching).
 
     Unlike the reference, which returns updated copies, the token's k and
     v are written into ``cache_k`` / ``cache_v`` in place (no copy of the
-    cache per step).  Returns (out, cache_k, cache_v)."""
+    cache per step).  The reference's scatter drops the write of a slot
+    whose position is past the cache; with ``drop_out_of_range`` so does
+    this one (the enc-dec decoder asks for it: its position can run past
+    ``dec_max``), otherwise such a position raises.  Returns (out,
+    cache_k, cache_v)."""
     B = x.shape[0]
     q, k, v = _qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
     pos_b = torch.as_tensor(pos, device=x.device).to(torch.long)
@@ -285,10 +308,17 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, window=None,
         k = rope(k, pos_b[:, None], cfg.rope_theta)
     qh = q.transpose(1, 2)                          # [B, H, 1, D]
     bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, :, pos_b] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, :, pos_b] = v[:, 0].to(cache_v.dtype)
-    groups = cfg.n_heads // cfg.n_kv_heads
     Smax = cache_k.shape[2]
+    k1, v1 = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
+    pos_w = pos_b
+    if drop_out_of_range:
+        pos_w = pos_b.clamp(max=Smax - 1)
+        keep = (pos_b < Smax)[:, None, None]
+        k1 = torch.where(keep, k1, cache_k[bidx, :, pos_w])
+        v1 = torch.where(keep, v1, cache_v[bidx, :, pos_w])
+    cache_k[bidx, :, pos_w] = k1
+    cache_v[bidx, :, pos_w] = v1
+    groups = cfg.n_heads // cfg.n_kv_heads
     scale = cfg.d_head ** -0.5
     # grouped-query einsum: the G-times-repeated KV is never materialized;
     # operands in the cache's dtype, products and sums in float32 (the
@@ -479,4 +509,5 @@ __all__ = ["attention_apply", "attention_decode", "attention_init",
            "layer_norm_init", "mlp_apply", "mlp_init", "moe_apply",
            "moe_capacity", "moe_combine", "moe_dispatch", "moe_init",
            "moe_route", "rms_norm",
-           "rms_norm_init", "rope", "stable_top_k", "windowed_attention"]
+           "rms_norm_init", "rope", "scan_in_chunks", "stable_top_k",
+           "windowed_attention"]

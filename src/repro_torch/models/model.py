@@ -1,5 +1,6 @@
-"""Public model API: config, init, forward, loss, prefill/decode, for the
-dense and MoE families.
+"""Public model API: config, init, forward, loss, prefill/decode, for all
+ten architectures: dense, MoE, hybrid (RG-LRU), SSM (RWKV-6), enc-dec
+(whisper) and VLM (llava).
 
 Counterpart of ``repro/models/model.py``.  :class:`ModelConfig` has every
 field of the reference's (dtypes are torch dtypes), so a reference config
@@ -8,9 +9,14 @@ trainable parameters; the functions take it as the reference's take its
 parameter pytree.  With ``cfg.compute_dtype`` set, :func:`forward`,
 :func:`prefill` and :func:`decode_step` first cast the parameters to it
 as the reference does (:func:`cast_for_compute`), so a training step
-differentiates through the cast into float32 masters.  The other
-families (hybrid, SSM, enc-dec, VLM) and learned absolute positions
-(whisper's) are not ported and raise ``NotImplementedError``.
+differentiates through the cast into float32 masters.
+
+The enc-dec family takes ``batch["frames"]`` ``[B, enc_seq, d]`` (the
+stub of whisper's conv front end) beside the tokens, and raises
+``KeyError`` without it, as the reference does; the VLM family takes
+optional ``batch["patches"]`` ``[B, n_patches, d]``, which go before the
+tokens.  A whisper decode step at ``pos >= dec_max`` gives NaN logits and
+writes nothing into the cache, as the reference's (ROADMAP finding 12).
 
 Entry points run on the CUDA device unless given ``device=...``
 (:func:`repro_torch.core.engine.resolve_device`).  Serve under
@@ -30,10 +36,15 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.core.engine import resolve_device
+from . import rglru as rg
+from . import rwkv6 as rw
 from . import transformer as tf
-from .layers import (_mm, layer_norm, layer_norm_init, rms_norm,
-                     rms_norm_init)
+from .layers import (_mm, attention_apply, attention_decode,
+                     attention_init, layer_norm, layer_norm_init, mlp_apply,
+                     mlp_init, rms_norm, rms_norm_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,43 +99,140 @@ class ModelConfig:
         return self.n_enc_layers > 0
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the port can run ``cfg``."""
-    if (cfg.family not in ("dense", "moe") or cfg.is_encdec
-            or cfg.n_patches):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported (dense and "
-            f"moe only)")
-    if cfg.learned_pos:
-        raise NotImplementedError("learned positions are not ported")
-    tf.check_supported(cfg)
+def _norm(cfg):
+    return rms_norm if cfg.norm == "rms" else layer_norm
+
+
+# --------------------------------------------------------------------------
+# Whisper-style enc-dec decoder block (self-attn + cross-attn + mlp)
+# --------------------------------------------------------------------------
+
+
+class EncDecBlock(nn.Module):
+    """One decoder layer of the enc-dec family: ``norm1``, ``self``
+    (causal self-attention), ``norm2``, ``cross`` (attention over the
+    encoder's output), ``norm3`` and ``ffn`` (a gelu MLP), each a
+    ``ParameterDict`` with the reference's keys."""
+
+    NAMES = ("norm1", "norm2", "norm3", "self", "cross", "ffn")
+
+    def __init__(self, params: dict):
+        super().__init__()
+        for name in self.NAMES:
+            setattr(self, name, tf._pdict(params[name]))
+
+
+def _encdec_block_init(gen, cfg, device=None) -> EncDecBlock:
+    ninit = rms_norm_init if cfg.norm == "rms" else layer_norm_init
+
+    def attn():
+        return attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.d_head, device=device)
+    p = {"norm1": ninit(cfg.d_model, device),
+         "norm2": ninit(cfg.d_model, device),
+         "norm3": ninit(cfg.d_model, device)}
+    p["self"] = attn()
+    p["cross"] = attn()
+    p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, gated=False,
+                        device=device)
+    return EncDecBlock(p)
+
+
+def _cross_kv(p, enc_out, cfg):
+    """The encoder output's cross-attention k, v: [B, Hkv, Se, D] each."""
+    B, Se, _ = enc_out.shape
+    k = _mm(enc_out, p["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.d_head)
+    v = _mm(enc_out, p["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.d_head)
+    return k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _cross_attend(p, x, ck, cv, cfg):
+    """x: [B, Sq, d]; ck/cv: [B, Hkv, Se, D] precomputed encoder kv.  A
+    plain float32 softmax over every key (q scaled before the product),
+    cast back to x's dtype, as the reference's einsum."""
+    B, Sq, _ = x.shape
+    q = _mm(x, p["wq"]).reshape(B, Sq, cfg.n_heads, cfg.d_head)
+    if "bq" in p:
+        q = q + p["bq"].reshape(cfg.n_heads, cfg.d_head)
+    qh = q.transpose(1, 2)
+    groups = cfg.n_heads // cfg.n_kv_heads
+    kx = ck.repeat_interleave(groups, dim=1) if groups > 1 else ck
+    vx = cv.repeat_interleave(groups, dim=1) if groups > 1 else cv
+    s = torch.einsum("bhqd,bhkd->bhqk", qh.float() * cfg.d_head ** -0.5,
+                     kx.float())
+    pw = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", pw, vx.float())
+    o = o.to(x.dtype).transpose(1, 2).reshape(B, Sq,
+                                               cfg.n_heads * cfg.d_head)
+    return _mm(o, p["wo"])
+
+
+def _encdec_block_apply(blk, x, enc_kv, cfg, *, pos=None, cache=None,
+                        max_len=None):
+    """Full sequence (pos None) or one decode token (pos given, the self
+    kv cache updated in place).  With ``max_len`` the full-sequence path
+    also returns the padded self-attention kv cache."""
+    norm = _norm(cfg)
+    h = norm(blk.norm1, x)
+    if pos is None:
+        m, (kh, vh) = attention_apply(blk.self, h, cfg, causal=True,
+                                      impl=cfg.attention_impl,
+                                      use_rope=cfg.use_rope)
+        if max_len is not None:
+            cache = {"k": tf._pad_kv(kh, max_len),
+                     "v": tf._pad_kv(vh, max_len)}
+    else:
+        m, ck, cv = attention_decode(blk.self, h, cache["k"], cache["v"],
+                                     pos, cfg, use_rope=cfg.use_rope,
+                                     drop_out_of_range=True)
+        cache = dict(cache, k=ck, v=cv)
+    x = x + m
+    h = norm(blk.norm2, x)
+    x = x + _cross_attend(blk.cross, h, enc_kv[0], enc_kv[1], cfg)
+    h = norm(blk.norm3, x)
+    x = x + mlp_apply(blk.ffn, h, act="gelu")
+    return x, cache
 
 
 class LMParams(nn.Module):
     """The parameters of an LM: ``embed [vocab, d]``, ``lm_head
-    [d, vocab]`` (None when tied to ``embed``), ``final_norm`` and
-    ``stack``, an ``nn.ModuleList`` of
-    :class:`repro_torch.models.transformer.Block`.  Every tensor is a
-    trainable ``nn.Parameter``; ``named_parameters()`` names them
-    (``embed``, ``stack.0.mixer.wq``, ...), and those names key the
-    gradients and optimizer moments of :mod:`repro_torch.train`."""
+    [d, vocab]`` (None when tied to ``embed``), ``final_norm``, and
+    either ``stack``, an ``nn.ModuleList`` of
+    :class:`repro_torch.models.transformer.Block` (with ``pos``, learned
+    absolute positions, where ``cfg.learned_pos`` is set), or for the
+    enc-dec family ``enc_pos [enc_seq, d]``, ``dec_pos [dec_max, d]``,
+    ``encoder`` (blocks of kind ``"attn"``, run non-causal), ``decoder``
+    (:class:`EncDecBlock`) and ``enc_norm``.  Every tensor is a trainable
+    ``nn.Parameter``; ``named_parameters()`` names them (``embed``,
+    ``stack.0.mixer.wq``, ``decoder.1.cross.wk``, ...), and those names
+    key the gradients and optimizer moments of :mod:`repro_torch.train`."""
 
     def __init__(self, embed, lm_head, final_norm: dict,
-                 stack: nn.ModuleList):
+                 stack: nn.ModuleList | None = None, *, pos=None,
+                 enc_pos=None, dec_pos=None,
+                 encoder: nn.ModuleList | None = None,
+                 decoder: nn.ModuleList | None = None,
+                 enc_norm: dict | None = None):
         super().__init__()
+        opt = lambda t: None if t is None else nn.Parameter(t)  # noqa: E731
         self.embed = nn.Parameter(embed)
-        self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
+        self.lm_head = opt(lm_head)
         self.final_norm = tf._pdict(final_norm)
         self.stack = stack
+        self.pos = opt(pos)
+        self.enc_pos, self.dec_pos = opt(enc_pos), opt(dec_pos)
+        self.encoder, self.decoder = encoder, decoder
+        self.enc_norm = None if enc_norm is None else tf._pdict(enc_norm)
 
 
 def init_params(seed: int, cfg: ModelConfig, device=None) -> LMParams:
     """Random parameters drawn on ``device`` from a ``torch.Generator``
-    seeded with ``seed``: embeddings normal x 0.02 in ``cfg.param_dtype``,
-    weights normal / sqrt(fan-in) (experts / sqrt(d_model)), biases 0,
-    norm scales 1 (the reference's init; its JAX streams are not
-    reproduced)."""
-    check_supported(cfg)
+    seeded with ``seed``: embeddings and positions normal x 0.02 in
+    ``cfg.param_dtype``, weights normal / sqrt(fan-in) (experts / sqrt(
+    d_model)), biases 0, norm scales 1, and the recurrent blocks'
+    deterministic leaves as the reference's (RG-LRU's ``lam``, RWKV's
+    ``mu_*`` 0.5, ``w0`` -6, ``u`` 0).  The reference's JAX streams are
+    not reproduced."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = cfg.param_dtype
@@ -135,28 +243,59 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> LMParams:
     embed = normal((cfg.vocab, cfg.d_model))
     lm_head = None if cfg.tie_embeddings else normal((cfg.d_model, cfg.vocab))
     ninit = rms_norm_init if cfg.norm == "rms" else layer_norm_init
+    if cfg.is_encdec:
+        enc_pos = normal((cfg.enc_seq, cfg.d_model))
+        dec_pos = normal((cfg.dec_max, cfg.d_model))
+        encoder = nn.ModuleList(tf.block_init(gen, "attn", cfg, device)
+                                for _ in range(cfg.n_enc_layers))
+        decoder = nn.ModuleList(_encdec_block_init(gen, cfg, device)
+                                for _ in range(cfg.n_layers))
+        return LMParams(embed, lm_head, ninit(cfg.d_model, device),
+                        enc_pos=enc_pos, dec_pos=dec_pos, encoder=encoder,
+                        decoder=decoder, enc_norm=ninit(cfg.d_model, device))
     stack = tf.stack_init(gen, cfg, device)
-    return LMParams(embed, lm_head, ninit(cfg.d_model, device), stack)
+    pos = normal((cfg.learned_pos, cfg.d_model)) if cfg.learned_pos else None
+    return LMParams(embed, lm_head, ninit(cfg.d_model, device), stack,
+                    pos=pos)
+
+
+def _block_count(kind, cfg) -> int:
+    d, hd = cfg.d_model, cfg.d_head
+    norm = d if cfg.norm == "rms" else 2 * d
+    if kind in ("attn", "local"):
+        mixer = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+        if cfg.qkv_bias:
+            mixer += hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
+    elif kind == "rglru":
+        mixer = rg.rglru_param_count(d, cfg.d_rnn)
+    else:
+        mixer = rw.timemix_param_count(d)
+    if cfg.n_experts > 0:
+        ffn = d * cfg.n_experts + cfg.n_experts * 3 * d * cfg.d_ff
+        ffn += 3 * d * cfg.d_ff if cfg.shared_expert else 0
+    elif kind == "rwkv":
+        ffn = rw.chanmix_param_count(d, cfg.d_ff)
+    else:
+        ffn = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    return mixer + ffn + 2 * norm
 
 
 def count_params(cfg: ModelConfig) -> int:
     """Parameter count of ``cfg``'s model, from shapes alone (an MoE
     feed-forward: the router, every expert's three matrices and the
     shared expert)."""
-    check_supported(cfg)
-    d, hd = cfg.d_model, cfg.d_head
-    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-    if cfg.qkv_bias:
-        attn += hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
-    if cfg.n_experts > 0:
-        ffn = d * cfg.n_experts + cfg.n_experts * 3 * d * cfg.d_ff
-        ffn += 3 * d * cfg.d_ff if cfg.shared_expert else 0
-    else:
-        ffn = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    d = cfg.d_model
     norm = d if cfg.norm == "rms" else 2 * d
-    per_layer = attn + ffn + 2 * norm
     head = 0 if cfg.tie_embeddings else d * cfg.vocab
-    return cfg.vocab * d + head + norm + cfg.n_layers * per_layer
+    n = cfg.vocab * d + head + norm
+    if cfg.is_encdec:
+        attn = d * cfg.d_head * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+        dec = 3 * norm + 2 * attn + 2 * d * cfg.d_ff
+        return (n + (cfg.enc_seq + cfg.dec_max) * d + norm
+                + cfg.n_enc_layers * _block_count("attn", cfg)
+                + cfg.n_layers * dec)
+    n += sum(_block_count(k, cfg) for k in tf.layer_kinds(cfg))
+    return n + cfg.learned_pos * d
 
 
 def cast_for_compute(params: LMParams, cfg: ModelConfig):
@@ -167,42 +306,106 @@ def cast_for_compute(params: LMParams, cfg: ModelConfig):
     reach the float32 masters.
 
     The reference casts the leaves of its parameter tree that have two or
-    more dimensions, and the layers of its scanned pattern repeats are
-    stacked there on a leading layer axis: their norm scales and biases
-    are 2-D and cast too.  Only ``final_norm`` and the unrolled tail
-    layers' (``n_layers % len(block_pattern)``) 1-D tensors stay float32.
-    So here too."""
+    more dimensions, and the layers of its scanned pattern repeats, and
+    whisper's encoder and decoder, are stacked there on a leading layer
+    axis: their 1-D leaves (norm scales and biases, qkv biases, RG-LRU's
+    ``lam``, RWKV's ``mu_*``, ``w0``, ``u`` and ``ln_scale``) are 2-D
+    there and cast too.  Only ``final_norm``, ``enc_norm`` and the
+    unrolled tail layers' (``n_layers % len(block_pattern)``) 1-D tensors
+    stay float32.  So here too (ROADMAP finding 10)."""
     cd = cfg.compute_dtype
     if cd is None:
         return params
-    n_scan = cfg.n_layers // len(cfg.block_pattern) * len(cfg.block_pattern)
 
     def tree(p, min_dim):
         return {k: tree(v, min_dim) if isinstance(v, nn.ParameterDict)
                 else (v.to(cd) if v.dim() >= min_dim else v)
                 for k, v in p.items()}
-    stack = [SimpleNamespace(kind=blk.kind, **{
-        n: tree(getattr(blk, n), 1 if i < n_scan else 2)
-        for n in ("norm1", "mixer", "norm2", "ffn")})
-        for i, blk in enumerate(params.stack)]
-    return SimpleNamespace(
-        embed=params.embed.to(cd),
-        lm_head=None if params.lm_head is None else params.lm_head.to(cd),
-        final_norm=tree(params.final_norm, 2), stack=stack)
+
+    def block(blk, min_dim):
+        return SimpleNamespace(kind=getattr(blk, "kind", None), **{
+            n: tree(m, min_dim) for n, m in blk.named_children()})
+
+    def cast(t):
+        return None if t is None else t.to(cd)
+    view = SimpleNamespace(
+        embed=params.embed.to(cd), lm_head=cast(params.lm_head),
+        final_norm=tree(params.final_norm, 2), pos=cast(params.pos),
+        enc_pos=cast(params.enc_pos), dec_pos=cast(params.dec_pos),
+        stack=None, encoder=None, decoder=None, enc_norm=None)
+    if cfg.is_encdec:
+        view.encoder = [block(b, 1) for b in params.encoder]
+        view.decoder = [block(b, 1) for b in params.decoder]
+        view.enc_norm = tree(params.enc_norm, 2)
+    else:
+        pat = len(cfg.block_pattern)
+        n_scan = cfg.n_layers // pat * pat
+        view.stack = [block(b, 1 if i < n_scan else 2)
+                      for i, b in enumerate(params.stack)]
+    return view
 
 
 def _final(params: LMParams, x, cfg):
-    x = (rms_norm if cfg.norm == "rms" else layer_norm)(params.final_norm, x)
+    x = _norm(cfg)(params.final_norm, x)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     return _mm(x, head)
 
 
+def _take_rows(table, pos, B):
+    """``table[pos]`` for int or per-slot [B] positions, NaN rows where a
+    position is past the table, as ``jnp.take``'s default fill."""
+    pos_b = torch.as_tensor(pos, device=table.device).long().expand(B)
+    n = table.shape[0]
+    rows = table[pos_b.clamp(max=n - 1)]
+    return torch.where((pos_b < n)[:, None], rows, float("nan"))
+
+
+def _embed_inputs(params, batch, cfg):
+    """Token (+ patch stub) embedding: [B, S, d], the patches (cast to
+    x's dtype) before the tokens; learned positions for a model that is
+    not enc-dec."""
+    x = params.embed[batch["tokens"]]
+    if cfg.n_patches and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    if cfg.learned_pos and params.pos is not None and not cfg.is_encdec:
+        x = x + params.pos[:x.shape[1]]
+    return x
+
+
+def _layers(fn, blocks, x, remat):
+    """x through ``fn(block, x)`` for each block, each recomputed in the
+    backward pass when ``remat`` and grad is enabled."""
+    remat = remat and torch.is_grad_enabled()
+    for blk in blocks:
+        x = checkpoint(fn, blk, x, use_reentrant=False) if remat \
+            else fn(blk, x)
+    return x
+
+
+def _encode(params, frames, cfg, remat=False):
+    """Whisper's encoder over ``frames`` cast to ``cfg.param_dtype`` plus
+    ``enc_pos``: non-causal attention blocks, then ``enc_norm``."""
+    enc = frames.to(cfg.param_dtype) + params.enc_pos[None]
+    enc = _layers(lambda blk, h: tf.block_apply(
+        blk, h, cfg, causal=False, impl=cfg.attention_impl)[0],
+        params.encoder, enc, remat)
+    return _norm(cfg)(params.enc_norm, enc)
+
+
 def forward(params: LMParams, batch, cfg: ModelConfig):
     """Returns (logits [B, S, vocab], aux_loss)."""
-    check_supported(cfg)
     params = cast_for_compute(params, cfg)
-    x = params.embed[batch["tokens"]]
-    x, aux = tf.stack_apply(params.stack, x, cfg, causal=True)
+    if cfg.is_encdec:
+        enc = _encode(params, batch["frames"], cfg, cfg.remat)
+        x = params.embed[batch["tokens"]]
+        x = x + params.dec_pos[:x.shape[1]][None]
+        x = _layers(lambda blk, h: _encdec_block_apply(
+            blk, h, _cross_kv(blk.cross, enc, cfg), cfg)[0],
+            params.decoder, x, cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x = _embed_inputs(params, batch, cfg)
+        x, aux = tf.stack_apply(params.stack, x, cfg, causal=True)
     return _final(params, x, cfg), aux
 
 
@@ -210,9 +413,12 @@ def loss_fn(params: LMParams, batch, cfg: ModelConfig, aux_weight=0.01):
     """Next-token cross entropy (+ MoE aux) of ``batch["tokens"]`` against
     ``batch["labels"]`` ([B, S]; labels < 0 carry no loss): the mean over
     the labelled positions of float32 ``logsumexp`` minus the gold logit,
-    plus ``aux_weight * aux``.  A 0-d float32 tensor."""
+    plus ``aux_weight * aux``.  Patch positions carry no loss.  A 0-d
+    float32 tensor."""
     logits, aux = forward(params, batch, cfg)
     labels = batch["labels"].long()
+    if cfg.n_patches and "patches" in batch:
+        logits = logits[:, cfg.n_patches:]
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     # a masked label may be negative: gather at 0 there, then mask it out
@@ -224,32 +430,65 @@ def loss_fn(params: LMParams, batch, cfg: ModelConfig, aux_weight=0.01):
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.float32, device=None):
-    """A zero kv cache: a list of ``{"k", "v"}`` ``[B, Hkv, max_len, D]``
-    per layer."""
-    check_supported(cfg)
-    return tf.stack_cache_init(cfg, batch_size, max_len, dtype,
-                               resolve_device(device))
+    """A zero decode cache: a list of one dict per layer
+    (:func:`repro_torch.models.transformer.block_cache_init`); for the
+    enc-dec family ``{"self": [...], "cross": [...]}``, one ``{"k", "v"}``
+    per decoder layer each, ``[B, Hkv, dec_max, D]`` and ``[B, Hkv,
+    enc_seq, D]`` (``max_len`` is not used)."""
+    device = resolve_device(device)
+    if cfg.is_encdec:
+        def kv(S):
+            shape = (batch_size, cfg.n_kv_heads, S, cfg.d_head)
+            return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)}
+                    for _ in range(cfg.n_layers)]
+        return {"self": kv(cfg.dec_max), "cross": kv(cfg.enc_seq)}
+    return tf.stack_cache_init(cfg, batch_size, max_len, dtype, device)
 
 
 def prefill(params: LMParams, batch, cfg: ModelConfig, max_len: int):
-    """Returns (last-token logits [B, vocab], cache padded to max_len)."""
-    check_supported(cfg)
+    """Returns (last-token logits [B, vocab], cache padded to max_len; for
+    the enc-dec family the self cache is padded to ``cfg.dec_max``
+    whatever ``max_len``, and the cross cache holds the encoder's kv)."""
     params = cast_for_compute(params, cfg)
-    x = params.embed[batch["tokens"]]
-    x, cache = tf.stack_prefill(params.stack, x, cfg, max_len, causal=True)
+    if cfg.is_encdec:
+        enc = _encode(params, batch["frames"], cfg)
+        x = params.embed[batch["tokens"]]
+        x = x + params.dec_pos[:x.shape[1]][None]
+        cache = {"self": [], "cross": []}
+        for blk in params.decoder:
+            kv = _cross_kv(blk.cross, enc, cfg)
+            x, sc = _encdec_block_apply(blk, x, kv, cfg, max_len=cfg.dec_max)
+            cache["self"].append(sc)
+            cache["cross"].append({"k": kv[0], "v": kv[1]})
+    else:
+        x = _embed_inputs(params, batch, cfg)
+        x, cache = tf.stack_prefill(params.stack, x, cfg, max_len,
+                                    causal=True)
     return _final(params, x[:, -1:], cfg)[:, 0], cache
 
 
 def decode_step(params: LMParams, cache, tokens, pos, cfg: ModelConfig):
-    """tokens: [B] int; pos: int or per-slot [B] write positions.  The
-    cache is updated in place.  Returns (logits [B, vocab], cache)."""
-    check_supported(cfg)
+    """tokens: [B] int; pos: int or per-slot [B] write positions.  The kv
+    caches are updated in place.  Returns (logits [B, vocab], cache)."""
     params = cast_for_compute(params, cfg)
+    B = tokens.shape[0]
     x = params.embed[tokens][:, None]                # [B, 1, d]
-    x, cache = tf.stack_decode(params.stack, cache, x, cfg, pos)
+    if cfg.is_encdec:
+        x = x + _take_rows(params.dec_pos, pos, B)[:, None]
+        new_self = []
+        for blk, sc, cc in zip(params.decoder, cache["self"], cache["cross"]):
+            x, sc = _encdec_block_apply(blk, x, (cc["k"], cc["v"]), cfg,
+                                        pos=pos, cache=sc)
+            new_self.append(sc)
+        cache = {"self": new_self, "cross": cache["cross"]}
+    else:
+        if cfg.learned_pos and params.pos is not None:
+            x = x + _take_rows(params.pos, pos, B)[:, None]
+        x, cache = tf.stack_decode(params.stack, cache, x, cfg, pos)
     return _final(params, x, cfg)[:, 0], cache
 
 
-__all__ = ["LMParams", "ModelConfig", "cast_for_compute", "check_supported",
+__all__ = ["EncDecBlock", "LMParams", "ModelConfig", "cast_for_compute",
            "count_params", "decode_step", "forward", "init_cache",
            "init_params", "loss_fn", "prefill"]

@@ -2,13 +2,20 @@
 prefill/decode API.
 
 Counterpart of ``repro/serving/engine.py``.  A fixed pool of B decode
-slots shares one KV cache (a list of ``{"k", "v"}`` ``[B, Hkv, max_len,
-D]`` per layer) on the parameters' device.  Requests are prefilled one at
-a time (the request's kv is copied into its slot) and then decoded jointly:
-each :meth:`ServingEngine.step` advances every live slot by one token.
-Finished slots (EOS or length limit) are recycled.  Slot positions, the
-scatter, the truncation rule and the counters behind :meth:`stats` are the
-reference's; the cache is updated in place rather than copied.
+slots shares one decode cache on the parameters' device: a dict per layer
+of ``[B, ...]`` leaves (``{"k", "v"}`` ``[B, Hkv, max_len, D]`` for
+attention, RG-LRU's ``{"h", "tail"}``, RWKV's ``{"shift_t", "wkv" [B, H,
+64, 64], "shift_c"}``).  Requests are prefilled one at a time (every leaf
+of the request's cache is copied into its slot along its batch axis) and
+then decoded jointly: each :meth:`ServingEngine.step` advances every slot
+by one token.  An idle slot's recurrent state advances too and is
+overwritten at its next admission, as in the reference.  Finished slots
+(EOS or length limit) are recycled.  Slot positions, the scatter, the
+truncation rule and the counters behind :meth:`stats` are the reference's;
+kv caches are updated in place rather than copied.  Admission prefills
+``{"tokens"}`` only, as the reference's: a VLM serves text, and the
+enc-dec family (whisper), whose encoder needs ``frames``, raises
+``KeyError`` (ROADMAP finding 13).
 """
 
 from __future__ import annotations

@@ -1046,3 +1046,73 @@ def test_moe_apply_with_drops_on_the_card_matches_the_cpu(cuda, arch):
                                    out_cpu.numpy(), atol=1e-5, rtol=0)
         np.testing.assert_allclose(float(runs[0][1]), float(aux_cpu),
                                    rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,S,D,causal,window", [
+    (16, 16, 1500, 64, False, None),       # whisper-medium's encoder
+    (10, 1, 1024, 256, True, 2048),        # recurrentgemma-2b's local
+    (10, 1, 2048, 256, True, 2048)])       # layers: one kv head for 10
+def test_flash_kernel_at_the_recurrent_and_encdec_shapes(cuda, H, Hkv, S, D,
+                                                         causal, window):
+    """The kernel against its plain version at the shapes the new
+    families give it: non-causal over 1,500 frames (not a multiple of the
+    64-query block) at D 64, and a 10:1 GQA group at D 256 with a 2,048
+    window.  atol 2e-4, the JAX package's tolerance for its kernel."""
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q = torch.randn(1, H, S, D, device=cuda, generator=g)
+    k = torch.randn(1, Hkv, S, D, device=cuda, generator=g)
+    v = torch.randn(1, Hkv, S, D, device=cuda, generator=g)
+    FK.reset_launches()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    plain = FK.flash_attention_plain(q, k, v, scale=D ** -0.5,
+                                     causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention"] == 1
+    assert float((out - plain).abs().max()) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_recurrentgemma_decode_on_the_card_matches_the_cpu(cuda):
+    """recurrentgemma SMOKE (RG-LRU blocks and a local-attention layer
+    through the flash kernel) on the card against the CPU: a 40-token
+    prefill and 3 decode steps, logits and every cache leaf atol 1e-4
+    (float32 without TF32; the card's GEMMs and the kernel's 3xTF32
+    products sum in other orders than the CPU's); one flash launch, for
+    the one local layer."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b", smoke=True),
+                              attention_impl="pallas")
+    cpu_params = init_params(0, cfg, "cpu")
+    card_params = copy.deepcopy(cpu_params).to(cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 43),
+                         generator=torch.Generator().manual_seed(0))
+
+    def run(params, device):
+        out = []
+        t = toks.to(device)
+        with torch.inference_mode():
+            logits, cache = prefill(params, {"tokens": t[:, :40]}, cfg, 64)
+            out.append(logits)
+            for i in range(3):
+                logits, cache = decode_step(params, cache, t[:, 40 + i],
+                                            40 + i, cfg)
+                out.append(logits)
+        return out, cache
+
+    FK.reset_launches()
+    card, card_cache = run(card_params, cuda)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention"] == 1
+    cpu, cpu_cache = run(cpu_params, "cpu")
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+    for i, (a, b) in enumerate(zip(card_cache, cpu_cache)):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            np.testing.assert_allclose(a[k].cpu().numpy(), b[k].numpy(),
+                                       atol=1e-4, err_msg=f"{i}.{k}")

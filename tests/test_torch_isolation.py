@@ -73,7 +73,13 @@ def test_every_module_imports_with_jax_blocked():
                  "repro_torch.configs.gemma3_12b",
                  "repro_torch.configs.grok1_314b",
                  "repro_torch.configs.llama4_scout_17b_a16e",
-                 "repro_torch.configs.shapes"):
+                 "repro_torch.configs.shapes",
+                 "repro_torch.models.rglru",
+                 "repro_torch.models.rwkv6",
+                 "repro_torch.configs.recurrentgemma_2b",
+                 "repro_torch.configs.rwkv6_7b",
+                 "repro_torch.configs.whisper_medium",
+                 "repro_torch.configs.llava_next_34b"):
         assert name in names, name
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

@@ -65,7 +65,7 @@ from repro.serving import ServingEngine as RefEngine
 from repro.train import make_train_step as ref_make_train_step
 from repro.train.train_step import init_train_state as ref_init_state
 from repro_torch import convert
-from repro_torch.configs import PORTED, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs import shapes
 from repro_torch.models import (count_params, decode_step, forward,
                                 init_params, loss_fn, prefill)
@@ -160,7 +160,7 @@ def test_config_mirrors_reference(name):
     p = init_params(0, get_config(name, smoke=True), device="cpu")
     assert sum(x.numel() for x in p.parameters()) == count_params(
         get_config(name, smoke=True))
-    assert len(PORTED) == 6
+    assert len(ARCHS) == 10
 
 
 # ---------------------------------------------------------------------------
@@ -513,8 +513,11 @@ def test_bf16_serving_params_match_reference():
 
 
 def _ported_names():
+    """The dense and MoE architectures (the other families' caches:
+    tests/test_torch_lm_encdec_vlm.py)."""
     from repro_torch.configs import ALIASES
-    return [n for n, m in ALIASES.items() if m in PORTED]
+    return [n for n in ALIASES
+            if get_config(n).family in ("dense", "moe")]
 
 
 @pytest.mark.parametrize("smoke_scale", [False, True])
