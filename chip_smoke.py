@@ -94,7 +94,18 @@ kernel against its plain PyTorch version, then drives these paths:
   --smoke`` as a program, recovering from ``--fail-at 30``;
 * the same training run with ``compute_dtype=torch.bfloat16`` (float32
   masters and moments): 10 steps whose loss must fall and stay within
-  ``BF16_LOSS_ATOL`` of the float32 run's, timed and profiled.
+  ``BF16_LOSS_ATOL`` of the float32 run's, timed and profiled;
+* ``repro_torch.parallel`` at phi3-medium-14b's full width, as ``gloo``
+  ranks on the one card (``torchrun``; this script's ``--par-worker``
+  mode is one rank): the sharded train step at 2 layers on a (data 1,
+  model 2) mesh, bitwise the same 3 steps run unsharded, and on a
+  (data 2, model 1) mesh at the microbatch tolerance; the GPipe schedule
+  over 4 ranks, one full-width block a stage through the flash kernel,
+  bitwise the blocks in sequence (36 and 24 flash launches);
+  ``compressed_psum`` of a full-size ``w_up`` gradient on (pod 2, data
+  2), bitwise the reduction in one process; and the training CLI's mesh
+  path (``--smoke --data 2 --model 1`` under ``torchrun``) printing the
+  unsharded run's lines.
 
 The flash kernel is also timed at gemma3-12b's local layers (D 256,
 window 1,024, S 1,024 and 2,048) beside its plain version and
@@ -109,7 +120,8 @@ failure; nothing is caught.  The last lines are a JSON line of the
 supervision and scenario numbers, a JSON line of the serving and
 resilience numbers, a JSON line of the exact engines' and the 12-rank
 path's numbers, a JSON line of the training numbers (float32 and
-bfloat16), a JSON line of the LM families' numbers, a JSON line of
+bfloat16), a JSON line of the parallel phase's numbers, a JSON line of
+the LM families' numbers, a JSON line of
 those activity cases
 (``background_storm``'s spikes among them), a JSON line of kernel
 measurements, the card's name and power limit, and ``{"ok": true,
@@ -141,11 +153,11 @@ T_MAIN = 1_000
 T_OTHER = 200
 T_LIF = 1_000
 P_DIST = 12                     # the paper's chip count, emulated on one card
-T_DIST = 200
+T_DIST = 50                     # cut from 200 for the parallel phase
 T_DIST_F32 = 25
 T_DIST_TRACE = 10
-T_TRIALS = 300                  # depths cut to keep the whole run near
-                                # 780 s (PERF.md section 4)
+T_TRIALS = 150                  # cut from 300 to keep the whole run
+                                # under ~1,050 s (PERF.md section 4)
 TRIAL_SEEDS = 10                # the reference's default: the paper's trials
 T_TRIALS_TRACE = 20
 # run_trials engines; "event" is CONFIG.sim as it is
@@ -164,10 +176,10 @@ T_EXACT_SHORT = 200             # ell uncapped and at the default cap, dense
 T_EXACT_TRIALS = 100            # run_trials through binned and dense
 EXACT_TRIAL_SEEDS = 10
 T_EXACT_TRACE = 20              # profiled steps of each exact engine
-MP_CHUNK = 50                   # the 12-rank chunked run, killed after 2
+MP_CHUNK = 20                   # the 12-rank chunked run, killed after 2
 T_MP_NCCL = 200                 # one nccl rank, P = 1, step_response
 MP_TIMEOUT = 600                # seconds for a torchrun of 12 ranks
-T_SUPERVISE = 500               # chunked / telemetry / checkpoint runs
+T_SUPERVISE = 250               # chunked / telemetry / checkpoint runs
 SUPERVISE_CHUNK = 125
 SUPERVISE_REPS = 2              # one chunk and chunked, alternated
 T_SUPERVISE_TRACE = 100         # profiled in one chunk and in chunks of
@@ -187,8 +199,8 @@ T_SERVE_OTHER = 100             # the blocked server and the escalation tier
 T_SERVE_TRACE = 100             # a profiled batch in chunks of
 SERVE_TRACE_CHUNK = 25          # this many steps
 SERVE_ESCALATIONS = 5           # the event tier's budget of escalations
-RESILIENT_CHUNK = 50            # run_resilient over faulty at P = 12
-RESILIENT_FAIL_AT = 60          # inside the second chunk
+RESILIENT_CHUNK = 25            # run_resilient over faulty at P = 12
+RESILIENT_FAIL_AT = 30          # inside the second chunk
 T_PAYLOAD_DROP = 50
 SERVE_CLI_REQUESTS = 8
 # 9 resident blocks of 128 threads an SM: 65,536 / (9 x 128) registers a
@@ -235,6 +247,19 @@ ROUTE_TOL = 1e-3
 # the bfloat16 compute_dtype training run's losses against the float32
 # run's of the same weights and batches, step by step
 BF16_LOSS_ATOL = 0.05
+# the parallel phase, at phi3-medium-14b's full width: sharded training
+# over 2 gloo ranks on the card (2 of 40 layers: 1.709B parameters), the
+# GPipe schedule over 4 ranks (one full-width block a stage), and
+# compressed_psum on one full-size gradient leaf (w_up) over the same 4
+PAR_LAYERS = 2
+PAR_BATCH, PAR_SEQ, PAR_STEPS = 4, 512, 3
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 6, 512
+# (2, 1) against the unsharded run, leaf by leaf: the distance's norm
+# over the unsharded run's motion from the initial weights, and over
+# each moment's own norm (PERF.md section 6, PR 23)
+PAR_DP_PARAM_RTOL, PAR_DP_MOMENT_RTOL = 1e-2, 1e-3
+PAR_CLI = ["--smoke", "--steps", "20", "--log-every", "1"]
+PAR_TIMEOUT = 900               # seconds for a torchrun of the phase
 DEVICE = "cuda"
 
 
@@ -3875,6 +3900,453 @@ def mp_worker(spec_path: str) -> int:
     return 0
 
 
+def par_train(spec) -> dict:
+    """One rank of phase_parallel's sharded training (``--par-worker``,
+    job "train", 2 ranks): phi3-medium-14b at full width and PAR_LAYERS
+    layers, PAR_STEPS AdamW steps of PAR_BATCH x PAR_SEQ tokens, on a
+    (data 1, model 2) mesh, then a (data 2, model 1) one.  After each,
+    rank 0 runs the same steps unsharded in its own process and holds the
+    gathered shards of the parameters and both moments (and the losses)
+    against them (rank 1 sends its shards): bitwise on (1, 2), at
+    MB_LOSS_RTOL / MB_PARAM_ATOL on (2, 1), where each leaf's distance
+    is also measured against the unsharded run's motion from the initial
+    weights (parameters) or its own norm (moments), and the grad norms
+    are compared; the blocks a spec leaves
+    replicated must hold the same bits on every rank that holds them."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import phi3_medium_14b
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import count_params, init_params
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.parallel.sharding import shard_index
+    from repro_torch.train import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dc.replace(phi3_medium_14b.CONFIG, n_layers=PAR_LAYERS,
+                     attention_impl="chunked")
+    out = {"params": count_params(cfg), "meshes": {}}
+    meshes = {"data1_model2": make_host_mesh(data=1, model=2),
+              "data2_model1": make_host_mesh(data=2, model=1)}
+    for label, mesh in meshes.items():
+        exact = label == "data1_model2"
+        dev = mesh.device
+        out["rank"], out["device"] = mesh.rank, str(dev)
+        ds = SyntheticLM(vocab=cfg.vocab, seq=PAR_SEQ,
+                         global_batch=PAR_BATCH, seed=LM_SEED)
+
+        def optimizer():
+            return AdamW(lr=cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                            PAR_STEPS))
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        opt = optimizer()
+        state = init_train_state(init_params(LM_SEED, cfg, dev), opt,
+                                 mesh=mesh)
+        step = make_train_step(cfg, opt, mesh=mesh)
+        losses, gnorms, ms = [], [], []
+        for i in range(PAR_STEPS):
+            torch.cuda.synchronize(dev)
+            mesh.barrier()
+            t0 = time.perf_counter()
+            state, m = step(state, ds.batch_at(i, dev))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.empty_cache()     # the cache back for rank 0's run
+        sp = state.params
+        held = sum(t.numel() for t in sp.module.parameters())
+        replicas_equal, replicated = True, 0
+        for k, s in sp.shards.items():
+            used = {a for e in sp.specs[k] if e is not None
+                    for a in ((e,) if isinstance(e, str) else e)}
+            free = tuple(a for a in mesh.axis_names if a not in used)
+            if free and mesh.axis_size(free) > 1:
+                got = mesh.all_gather(s, free)
+                replicas_equal &= all(torch.equal(got[0], g) for g in got)
+                replicated += 1
+        res = {"losses": losses, "grad_norms": gnorms, "ms_per_step": ms,
+               "peak_gb": peak,
+               "full_params_held_between_steps": held,
+               "replicas_equal": replicas_equal,
+               "replicated_leaves": replicated}
+        mesh.barrier()
+        ref = None
+        if mesh.rank == 0:
+            ropt = optimizer()
+            rstate = init_train_state(init_params(LM_SEED, cfg, dev), ropt)
+            init = {k: p.detach().clone() for k, p in
+                    rstate.params.named_parameters()}
+            rstep = make_train_step(cfg, ropt)
+            ref_losses, ref_gnorms = [], []
+            for i in range(PAR_STEPS):
+                rstate, m = rstep(rstate, ds.batch_at(i, dev))
+                ref_losses.append(float(m["loss"]))
+                ref_gnorms.append(float(m["grad_norm"]))
+            ref = {"params": {k: p.detach() for k, p in
+                              rstate.params.named_parameters()},
+                   "m": rstate.opt.m, "v": rstate.opt.v}
+            # each leaf's distance is held against the unsharded run's
+            # motion from the initial weights (a frozen state reads 1)
+            # and each moment's against its own size (zeros read 1)
+            scale = {"params": {k: float(torch.linalg.vector_norm(
+                (p.double() - init[k].double()))) for k, p in
+                ref["params"].items()}}
+            del init, rstate
+            for part in ("m", "v"):
+                scale[part] = {k: float(torch.linalg.vector_norm(t.double()))
+                               for k, t in ref[part].items()}
+            res["unsharded_losses"] = ref_losses
+            res["unsharded_grad_norms"] = ref_gnorms
+            res["unsharded_peak_gb"] = (torch.cuda.max_memory_allocated(dev)
+                                        / 1e9)
+        mesh.barrier()
+        # every other rank sends its shards to rank 0, which holds each
+        # against its slice of the unsharded run (its own in place)
+        equal, err, rel = True, {}, {}
+        t0 = time.perf_counter()
+        for part, tree in (("params", sp.shards), ("m", state.opt.m),
+                           ("v", state.opt.v)):
+            err[part], rel[part] = 0.0, {}
+            for k, s in tree.items():
+                if ref is None:
+                    mesh.exchange(s, 0, None, None)
+                    continue
+                want, sq = ref[part][k], 0.0
+                for r in range(mesh.size):
+                    block = s if r == 0 else mesh.exchange(None, None, s, r)
+                    coords = dict(zip(mesh.axis_names,
+                                      (int(c) for c in np.unravel_index(
+                                          r, mesh.shape))))
+                    exp = want[shard_index(want.shape, sp.specs[k], mesh,
+                                           coords)]
+                    equal &= torch.equal(block, exp)
+                    err[part] = max(err[part], max_abs_err(block, exp))
+                    sq += float((block.double() - exp.double()).square()
+                                .sum())
+                    del block, exp
+                den = scale[part][k]
+                rel[part][k] = (math.sqrt(sq) / den if den > 0 else
+                                0.0 if sq == 0 else math.inf)
+        res["compare_s"] = time.perf_counter() - t0
+        if ref is not None:
+            res["bitwise"] = equal
+            res["max_abs_err"] = err
+            res["max_rel_dist"] = {part: max(v.values())
+                                   for part, v in rel.items()}
+            res["worst_leaf"] = {part: max(v, key=v.get)
+                                 for part, v in rel.items()}
+            res["exact_required"] = exact
+        del state, sp, ref
+        torch.cuda.empty_cache()
+        mesh.barrier()
+        out["meshes"][label] = res
+    return out
+
+
+def par_pipeline(spec) -> dict:
+    """One rank of phase_parallel's pipeline and compressed_psum
+    (``--par-worker``, job "pipeline", 4 ranks).  The GPipe schedule over a
+    (stage 4) mesh, one full-width phi3-medium-14b block a stage
+    (attention_impl "pallas": the flash kernel), PIPE_MICRO microbatches
+    of 1 x PIPE_SEQ tokens, under inference mode, the flash launches
+    counted from 0 just before and read just after; rank 0 then runs the
+    four blocks in sequence (launches counted likewise) and holds the
+    pipeline's outputs against them bitwise, and the kernel against its
+    plain version at the stage's shapes.  Then compressed_psum over the
+    same ranks as (pod 2, data 2) on a w_up-shaped gradient leaf a rank,
+    held bitwise against the same reduction written out in one process
+    on rank 0."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import phi3_medium_14b
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.mesh import join, mesh_layout
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import compressed_psum
+    from repro_torch.optim.compress import _INV_127
+    from repro_torch.parallel.pipeline import pipeline_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S = PIPE_STAGES
+    cfg = dc.replace(phi3_medium_14b.CONFIG, n_layers=S,
+                     attention_impl="pallas")
+    stages = join(mesh_layout((S,), ("stage",)))
+    dev, rank = stages.device, stages.rank
+    mine = stages.coords["stage"]
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def block(i):
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED + i)
+        return tf.block_init(gen, "attn", cfg, dev)
+
+    def stage_fn(blk, x):
+        return tf.block_apply(blk, x, cfg)[0]
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 100)
+    xs = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), generator=gen,
+                     device=dev)
+    out = {"rank": rank, "device": str(dev)}
+    with torch.inference_mode():
+        blocks = {mine: block(mine)}
+        stage_fn(blocks[mine], xs[0])           # warm-up, not counted
+        torch.cuda.synchronize(dev)
+        stages.barrier()
+        FK.reset_launches()
+        t0 = time.perf_counter()
+        outs = pipeline_apply(stage_fn, [blocks.get(i) for i in range(S)],
+                              xs, stages, S)
+        torch.cuda.synchronize(dev)
+        out["pipeline_s"] = time.perf_counter() - t0
+        out["pipeline_launches"] = FK.LAUNCHES["flash_attention"]
+        stages.barrier()
+        if rank == 0:
+            for i in range(1, S):
+                blocks[i] = block(i)
+            FK.reset_launches()
+            t0 = time.perf_counter()
+            seq = []
+            for x in xs:
+                for i in range(S):
+                    x = stage_fn(blocks[i], x)
+                seq.append(x)
+            seq = torch.stack(seq)
+            torch.cuda.synchronize(dev)
+            out["sequence_s"] = time.perf_counter() - t0
+            out["sequence_launches"] = FK.LAUNCHES["flash_attention"]
+            out["pipeline_bitwise_sequence"] = bool(torch.equal(outs, seq))
+            out["finite"] = bool(torch.isfinite(outs).all())
+            q, k, v = flash_inputs(1, cfg.n_heads, cfg.n_kv_heads, PIPE_SEQ,
+                                   cfg.d_head, 23)
+            got = flash_attention(q, k, v, causal=True)
+            plain = FK.flash_attention_plain(q, k, v, scale=cfg.d_head ** -0.5,
+                                             causal=True, window=None)
+            out["flash_max_abs_err"] = max_abs_err(got, plain)
+            del seq, q, k, v, got, plain
+        digest = torch.tensor([float(outs.double().sum())],
+                              dtype=torch.float64, device=dev)
+        sums = stages.all_gather(digest, "stage")
+        out["outputs_equal_on_every_rank"] = all(torch.equal(sums[0], x)
+                                                 for x in sums)
+        del blocks, outs
+    torch.cuda.empty_cache()
+
+    pd = join(mesh_layout((2, 2), ("pod", "data")))
+
+    def grad_leaf(r):
+        g = torch.Generator(device=dev).manual_seed(1000 + r)
+        return torch.randn((cfg.d_model, cfg.d_ff), generator=g,
+                           device=dev).mul_(1e-3)
+    x = grad_leaf(rank)
+    torch.cuda.synchronize(dev)
+    pd.barrier()
+    t0 = time.perf_counter()
+    y = compressed_psum(x, pd, pod_axis="pod", data_axis="data")
+    torch.cuda.synchronize(dev)
+    out["psum_s"] = time.perf_counter() - t0
+    out["psum_shape"] = list(y.shape)
+    del x
+    sums = pd.all_gather(torch.tensor([float(y.double().sum())],
+                                      dtype=torch.float64, device=dev),
+                         ("pod", "data"))
+    out["psum_equal_on_every_rank"] = all(torch.equal(sums[0], s_)
+                                          for s_ in sums)
+    if rank == 0:
+        # ranks (pod p, data d) = 2 p + d: float32 sums in pod, the
+        # shared scale, int8 quantization, the int32 sum across pods
+        pods = [grad_leaf(2 * p) + grad_leaf(2 * p + 1) for p in range(2)]
+        amax = torch.maximum(pods[0].abs().amax(), pods[1].abs().amax())
+        scale = amax.clamp_min(1e-12) * _INV_127
+        q = [torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8)
+             for t in pods]
+        want = (q[0].to(torch.int32) + q[1].to(torch.int32)).float() * scale
+        out["psum_bitwise_one_process"] = bool(torch.equal(y, want))
+        out["psum_max_abs_err_to_float_sum"] = max_abs_err(
+            y, pods[0] + pods[1])
+        out["psum_scale"] = float(scale)
+        del pods, q, want
+    del y
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def par_worker(spec_path: str) -> int:
+    """One rank of phase_parallel (``chip_smoke.py --par-worker SPEC``,
+    under torchrun, gloo): runs the spec's job and writes
+    ``rank<r>.json``."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    out = {"train": par_train, "pipeline": par_pipeline}[spec["job"]](spec)
+    out["total_s"] = time.perf_counter() - t0
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(spec["work"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def train_lines(text: str) -> list:
+    return [ln for ln in text.splitlines() if ln.startswith("[train]")]
+
+
+@phase("parallel/ at phi3-medium-14b's width: sharded training, GPipe, "
+       "compressed_psum, the mesh CLI (gloo ranks on one card)")
+def phase_parallel(smi):
+    """The sharded train step, the GPipe schedule and compressed_psum, each
+    run as gloo ranks on the one card (nccl refuses two ranks on one
+    device; this script's ``--par-worker`` mode is one rank), and the
+    training CLI's mesh path: ``python -m repro_torch.launch.train
+    --smoke --data 2 --model 1`` under torchrun against the same flags
+    unsharded through ``main(argv)`` in this process ([train] lines at
+    MB_LOSS_RTOL plus one unit of the printed digit).  Returns (the
+    flash launches of the pipeline, the numbers)."""
+    import re
+    out = {}
+    ranks = {}
+    for job, n in (("train", 2), ("pipeline", PIPE_STAGES)):
+        work = work_dir(f"parallel_{job}")
+        spec_path = os.path.join(work, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump({"job": job, "work": work}, f)
+        _, secs = torchrun(n, ["chip_smoke.py", "--par-worker", spec_path],
+                           timeout=PAR_TIMEOUT)
+        ranks[job] = []
+        for r in range(n):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks[job].append(json.load(f))
+        out[f"{job}_torchrun_s"] = secs
+    train = ranks["train"]
+    out["train"] = {"params": train[0]["params"], "ranks": train}
+    for label, res in train[0]["meshes"].items():
+        peaks = [r["meshes"][label]["peak_gb"] for r in train]
+        check(all(r["meshes"][label]["replicas_equal"] for r in train),
+              f"{label}: replicated blocks differ across ranks")
+        check(all(r["meshes"][label]["full_params_held_between_steps"] == 0
+                  for r in train), f"{label}: full parameters held between "
+              f"steps")
+        check(all(r["meshes"][label]["losses"] == res["losses"]
+                  for r in train), f"{label}: the ranks' losses differ")
+        got, want = res["losses"], res["unsharded_losses"]
+        if res["exact_required"]:
+            check(res["bitwise"] and got == want,
+                  f"{label}: the sharded run is not bitwise the unsharded "
+                  f"one: losses {got} / {want}, |err| {res['max_abs_err']}")
+        else:
+            check(all(abs(a - b) <= MB_LOSS_RTOL * abs(b)
+                      for a, b in zip(got, want)),
+                  f"{label}: losses {got} against {want}")
+            check(max(res["max_abs_err"].values()) <= MB_PARAM_ATOL,
+                  f"{label}: shards off by {res['max_abs_err']}")
+            # MB_PARAM_ATOL alone cannot fail here: 3 steps move no
+            # weight by more than ~1.6e-3.  These do (a frozen state reads
+            # 1, a gradient summed and not averaged reads ~1 on the
+            # moments and 2x on the grad norms)
+            rd = res["max_rel_dist"]
+            check(rd["params"] <= PAR_DP_PARAM_RTOL,
+                  f"{label}: parameters {rd['params']} of the unsharded "
+                  f"run's motion apart ({res['worst_leaf']['params']})")
+            check(max(rd["m"], rd["v"]) <= PAR_DP_MOMENT_RTOL,
+                  f"{label}: moments {rd} of their size apart "
+                  f"({res['worst_leaf']})")
+            check(all(abs(a - b) <= MB_LOSS_RTOL * abs(b) for a, b in
+                      zip(res["grad_norms"], res["unsharded_grad_norms"])),
+                  f"{label}: grad norms {res['grad_norms']} against "
+                  f"{res['unsharded_grad_norms']}")
+        check(all(math.isfinite(x) for x in got), f"{label}: losses {got}")
+        ms = [r["meshes"][label]["ms_per_step"] for r in train]
+        print(f"sharded training, {label}, phi3-medium-14b x {PAR_LAYERS} "
+              f"layers ({train[0]['params']} parameters), {PAR_STEPS} steps "
+              f"of {PAR_BATCH} x {PAR_SEQ} tokens: losses {got} (unsharded "
+              f"{want}); grad norms {res['grad_norms']} (unsharded "
+              f"{res['unsharded_grad_norms']}); bitwise {res['bitwise']}, "
+              f"|err| {res['max_abs_err']}, largest distance of a leaf "
+              f"relative to the unsharded motion (params) or size "
+              f"(moments) {res['max_rel_dist']} at {res['worst_leaf']}; "
+              f"ms a step per rank {ms}; peak device "
+              f"memory per rank {peaks} GB (the unsharded run on rank 0 "
+              f"{res['unsharded_peak_gb']:.3f}); {res['replicated_leaves']} "
+              f"replicated leaves equal on every rank; compare "
+              f"{res['compare_s']:.3f} s; card {smi}", flush=True)
+    pipe = ranks["pipeline"]
+    p0 = pipe[0]
+    n_pipe = sum(r["pipeline_launches"] for r in pipe)
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    check(n_pipe == PIPE_STAGES * ticks,
+          f"flash launched {n_pipe} times in the pipeline, not "
+          f"{PIPE_STAGES} x {ticks}")
+    check(p0["sequence_launches"] == PIPE_STAGES * PIPE_MICRO,
+          f"flash launched {p0['sequence_launches']} times in the sequence")
+    check(p0["pipeline_bitwise_sequence"] and p0["finite"]
+          and all(r["outputs_equal_on_every_rank"] for r in pipe),
+          "the pipeline's outputs differ from the blocks in sequence")
+    check(p0["flash_max_abs_err"] <= FLASH_ATOL,
+          f"flash off by {p0['flash_max_abs_err']} at the stage's shapes")
+    check(p0["psum_bitwise_one_process"]
+          and all(r["psum_equal_on_every_rank"] for r in pipe),
+          "compressed_psum differs from the one-process reduction")
+    print(f"GPipe over {PIPE_STAGES} ranks, one phi3-medium-14b block a "
+          f"stage, {PIPE_MICRO} microbatches of 1 x {PIPE_SEQ}: "
+          f"{p0['pipeline_s']:.3f} s ({ticks} ticks), bitwise the blocks in "
+          f"sequence ({p0['sequence_s']:.3f} s); flash launches {n_pipe} in "
+          f"the pipeline, {p0['sequence_launches']} in the sequence; "
+          f"|err| to plain at the stage's shapes "
+          f"{p0['flash_max_abs_err']:.3e}; compressed_psum of w_up "
+          f"{p0['psum_shape']} on (pod 2, data 2): {p0['psum_s']:.3f} s, "
+          f"bitwise the one-process reduction, |err| to the float sum "
+          f"{p0['psum_max_abs_err_to_float_sum']:.3e} (scale "
+          f"{p0['psum_scale']:.3e}); peak device memory per rank "
+          f"{[round(r['peak_gb'], 3) for r in pipe]} GB; card {smi}",
+          flush=True)
+    out["pipeline"] = {"ranks": pipe, "flash_launches": n_pipe,
+                       "sequence_flash_launches": p0["sequence_launches"]}
+
+    # the training CLI's mesh path against the same flags unsharded
+    args = ["-m", "repro_torch.launch.train", *PAR_CLI, "--data", "2",
+            "--model", "1", "--device", DEVICE]
+    mesh_out, cli_s = torchrun(2, args, timeout=PAR_TIMEOUT)
+    # the same flags unsharded, in this process (main(argv))
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_cli
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        train_cli.main([*PAR_CLI, "--device", DEVICE])
+    plain_s = time.perf_counter() - t0
+    a, b = train_lines(mesh_out), train_lines(text.getvalue())
+    shape = [re.sub(r"[-\d.]+", "#", x) for x in a]
+    check(len(a) == len(b) and shape == [re.sub(r"[-\d.]+", "#", x)
+                                         for x in b]
+          and a[-1] == f"[train] done at step {PAR_CLI[2]}",
+          f"the mesh CLI's lines {a[-3:]} against {b[-3:]}")
+    worst = 0.0
+    for x, y in zip(a, b):
+        for u, w in zip(re.findall(r"-?\d+\.\d+", x),
+                        re.findall(r"-?\d+\.\d+", y)):
+            unit = 10.0 ** -len(w.split(".")[1])
+            gap = abs(float(u) - float(w))
+            worst = max(worst, gap)
+            check(gap <= MB_LOSS_RTOL * abs(float(w)) + unit,
+                  f"the mesh CLI printed {x} against {y}")
+    check(len(re.findall(r"\[mesh\] rank \d of 2 at \{[^}]*\} on cuda",
+                         mesh_out)) == 2,
+          "the CLI's ranks did not report their devices")
+    print(f"mesh CLI (torchrun, 2 ranks, --data 2 --model 1): {cli_s:.3f} s; "
+          f"unsharded {plain_s:.3f} s; {len(a)} [train] lines, largest "
+          f"printed difference {worst:.4g}; {a[-2]}", flush=True)
+    out["cli"] = {"torchrun_s": cli_s, "unsharded_s": plain_s,
+                  "lines": len(a), "max_printed_gap": worst}
+    return n_pipe, out
+
+
 @phase("12 ranks on the card: the multi-process partitioned path (gloo)")
 def phase_multiprocess(c, cfg, emulated, smi):
     """The P = 12 partitioning of phase_distributed as 12 processes on the
@@ -4094,6 +4566,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--mp-worker"]:
         # one rank of phase_multiprocess, started by torchrun
         return mp_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--par-worker"]:
+        # one rank of phase_parallel, started by torchrun
+        return par_worker(sys.argv[2])
     t_all = time.perf_counter()
     smi = phase_env()
     phase_build()
@@ -4115,6 +4590,7 @@ def main() -> int:
     family_launches["whisper-medium"] = w_launches
     train_launches, training = phase_train(smi)
     training["bf16"] = phase_train_bf16(smi, training)
+    pipe_launches, parallel = phase_parallel(smi)
     flash_qwen, flash_cases = phase_flash_yardstick(smi)
     yard["flash_attention"] = (*flash_qwen, 0.0)
 
@@ -4186,6 +4662,14 @@ def main() -> int:
             # the configs of phase_lm_families and whisper's (attention
             # layers x prefills; 0 for rwkv6, which has none)
             kernels[-1]["families_launches"] = family_launches
+            # phase_parallel's GPipe schedule: 4 stages x 9 ticks, and the
+            # 4 blocks in sequence on rank 0 (6 microbatches x 4)
+            kernels[-1]["pipeline_launches"] = pipe_launches
+            kernels[-1]["pipeline_sequence_launches"] = parallel[
+                "pipeline"]["sequence_flash_launches"]
+            kernels[-1]["max_abs_err"] = max(
+                kernels[-1]["max_abs_err"],
+                parallel["pipeline"]["ranks"][0]["flash_max_abs_err"])
             # gemma3's local layers (D 256, window 1,024), whisper's
             # encoder (D 64, not causal), recurrentgemma's local layers
             # (Hkv 1 for 10 heads, D 256, window 2,048)
@@ -4235,6 +4719,7 @@ def main() -> int:
                       "multiprocess_p12": extra["multiprocess_p12"],
                       "cli_torchrun_p12_s": cli_torchrun_s}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"activity": activity}))
     print(json.dumps({"kernels": kernels}))

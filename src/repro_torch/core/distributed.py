@@ -120,6 +120,52 @@ class DistResult(NamedTuple):
 BACKENDS = ("nccl", "gloo")
 
 
+def host_buffer(like: torch.Tensor, staged: bool) -> torch.Tensor:
+    """An empty payload buffer shaped as ``like``: in pinned host memory
+    when the payload is staged (PyTorch's caching host allocator reuses
+    it from call to call), else beside ``like``."""
+    if staged:
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+    return torch.empty_like(like, memory_format=torch.contiguous_format)
+
+
+def send_buffer(x: torch.Tensor, staged: bool) -> torch.Tensor:
+    """``x`` as a payload: a copy in pinned host memory when staged, else
+    ``x`` itself (contiguous)."""
+    return host_buffer(x, True).copy_(x) if staged else x.contiguous()
+
+
+def staged_all_gather(x: torch.Tensor, peers: list[int], rank: int,
+                      backend: str) -> list[torch.Tensor]:
+    """Every rank's ``x`` of ``peers`` (global ranks, this one among them;
+    the same shape and dtype on each), in the order of ``peers``, each a
+    new tensor on ``x``'s device.  One send to and one receive from each
+    peer, all at once (``batch_isend_irecv``).  Under ``gloo`` a payload
+    on the card crosses host memory: copied into pinned host memory
+    before the sends and back to the device after the receives (gloo has
+    no CUDA collectives or send/recv; its ``all_gather`` would also copy
+    every payload into one flat buffer and out again).  Bool tensors
+    travel as their uint8 bytes."""
+    import torch.distributed as dist
+    if len(peers) == 1:
+        return [x.clone()]
+    is_bool = x.dtype == torch.bool
+    payload = x.view(torch.uint8) if is_bool else x
+    staged = backend == "gloo" and x.device.type != "cpu"
+    send = send_buffer(payload, staged)
+    got, ops = {}, []
+    for r in peers:
+        if r != rank:
+            got[r] = host_buffer(send, staged)
+            ops += [dist.P2POp(dist.isend, send, r),
+                    dist.P2POp(dist.irecv, got[r], r)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    out = [payload.clone() if r == rank else got[r].to(x.device)
+           for r in peers]
+    return [o.view(torch.bool) for o in out] if is_bool else out
+
+
 @dataclasses.dataclass(frozen=True)
 class CoreMesh:
     """This process's place in the multi-process partitioned run: the
@@ -128,10 +174,9 @@ class CoreMesh:
 
     ``nccl`` moves the payloads device to device and needs one GPU a
     rank.  ``gloo`` is the backend that can put several ranks on one card
-    (or run them on the CPU): its payloads cross host memory, by an
-    explicit ``.cpu()`` copy of each contribution before the collective
-    and a copy of the gathered tensors back to the rank's device after
-    it."""
+    (or run them on the CPU): its payloads cross host memory
+    (:func:`staged_all_gather`, the transport of
+    :class:`repro_torch.launch.mesh.Mesh` too)."""
 
     group: Any
     rank: int
@@ -141,19 +186,9 @@ class CoreMesh:
 
     def all_gather(self, x: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's ``x`` (same shape and dtype on each), in rank
-        order: one ``torch.distributed.all_gather`` into a preallocated
-        list.  Bool tensors travel as their uint8 bytes."""
-        import torch.distributed as dist
-        is_bool = x.dtype == torch.bool
-        send = (x.view(torch.uint8) if is_bool else x).contiguous()
-        host = self.backend == "gloo" and send.device.type != "cpu"
-        if host:
-            send = send.cpu()
-        out = [torch.empty_like(send) for _ in range(self.world_size)]
-        dist.all_gather(out, send, group=self.group)
-        if host:
-            out = [o.to(x.device) for o in out]
-        return [o.view(torch.bool) for o in out] if is_bool else out
+        order, each a new tensor: :func:`staged_all_gather`."""
+        return staged_all_gather(x, list(range(self.world_size)), self.rank,
+                                 self.backend)
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise sum of every rank's ``x``."""
@@ -670,5 +705,6 @@ def simulate_distributed(
 
 
 __all__ = ["AXIS", "BACKENDS", "CoreMesh", "DistConfig", "DistResult",
-           "RankCheckpointer", "gather_tree", "make_core_mesh", "rank_device",
-           "run_partitioned", "simulate_distributed"]
+           "RankCheckpointer", "gather_tree", "host_buffer", "make_core_mesh",
+           "rank_device", "run_partitioned", "send_buffer",
+           "simulate_distributed", "staged_all_gather"]

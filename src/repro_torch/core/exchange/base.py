@@ -92,8 +92,8 @@ def all_gather_group(sent: list[torch.Tensor], mesh) -> torch.Tensor:
     """The process-group collective: this rank's contribution in (the
     list of its one partition's), every rank's out, in rank (=
     partition) order along the last axis, as :func:`all_gather` lays out
-    the emulated list (``mesh.all_gather`` is one
-    ``torch.distributed.all_gather`` into a preallocated list)."""
+    the emulated list (``mesh.all_gather``: a send to and a receive from
+    each peer, :func:`repro_torch.core.distributed.staged_all_gather`)."""
     (mine,) = sent
     return all_gather(mesh.all_gather(mine))
 

@@ -22,7 +22,9 @@ Attention implementations (``cfg.attention_impl``, the reference's values):
 Mixed dtypes (``compute_dtype``): ``torch.matmul`` refuses operands of two
 dtypes where ``jnp.matmul`` promotes them, so the products go through
 :func:`_mm` / :func:`_einsum`, which promote as JAX does.  The reference's
-``shard_act`` is a no-op on one device and is dropped.
+``shard_act`` (:mod:`repro_torch.parallel.act`) returns its input
+unchanged in the port, whose ranks hold whole activations, so the layers
+do not call it.
 """
 
 from __future__ import annotations
@@ -106,15 +108,22 @@ def layer_norm(p, x, eps=1e-5):
 # --------------------------------------------------------------------------
 
 
-def rope(x, positions, theta=1e4):
-    """x: [..., S, n_heads, d_head]; positions: [..., S]."""
-    d = x.shape[-1]
+def rope_angles(positions, d, theta=1e4):
+    """RoPE's rotation at ``positions`` ``[..., S]`` for a head width
+    ``d``: ``(cos, sin)``, each ``[..., S, 1, d // 2]``.  Computed once, it
+    rotates q and k alike (:func:`rope_rotate`; the reference's ``rope``
+    computes it for each)."""
     half = d // 2
     log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
     freqs = torch.exp(-log_theta * torch.arange(
-        0, half, dtype=torch.float32, device=x.device) / half)
+        0, half, dtype=torch.float32, device=positions.device) / half)
     ang = positions[..., None].float() * freqs            # [..., S, half]
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rope_rotate(x, cos, sin):
+    """x: [..., S, n_heads, d_head] rotated by :func:`rope_angles`."""
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
@@ -265,8 +274,8 @@ def attention_apply(p, x, cfg, *, causal=True, window=None, positions=None,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+        q, k = rope_rotate(q, cos, sin), rope_rotate(k, cos, sin)
     qh = q.transpose(1, 2)      # [B, H, S, D]
     kh = k.transpose(1, 2)      # [B, Hkv, S, D] -- never GQA-expanded
     vh = v.transpose(1, 2)
@@ -288,36 +297,34 @@ def attention_apply(p, x, cfg, *, causal=True, window=None, positions=None,
 
 
 def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, window=None,
-                     use_rope=True, drop_out_of_range=False):
+                     use_rope=True):
     """One-token decode.  x: [B, 1, d]; cache_k/v: [B, Hkv, Smax, D];
     pos: int or per-slot [B] positions (continuous batching).
 
     Unlike the reference, which returns updated copies, the token's k and
     v are written into ``cache_k`` / ``cache_v`` in place (no copy of the
     cache per step).  The reference's scatter drops the write of a slot
-    whose position is past the cache; with ``drop_out_of_range`` so does
-    this one (the enc-dec decoder asks for it: its position can run past
-    ``dec_max``), otherwise such a position raises.  Returns (out,
-    cache_k, cache_v)."""
+    whose position is past the cache, and so does this one: the write
+    goes to the clamped position and keeps the value there (the slot then
+    attends over the whole cache, unchanged, as the reference's does).
+    RoPE's angles are computed once for q and k, which pays for the
+    drop's launches.  Returns (out, cache_k, cache_v)."""
     B = x.shape[0]
     q, k, v = _qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
     pos_b = torch.as_tensor(pos, device=x.device).to(torch.long)
     pos_b = pos_b.expand(B) if pos_b.dim() == 0 else pos_b
     if use_rope:
-        q = rope(q, pos_b[:, None], cfg.rope_theta)
-        k = rope(k, pos_b[:, None], cfg.rope_theta)
+        cos, sin = rope_angles(pos_b[:, None], cfg.d_head, cfg.rope_theta)
+        q, k = rope_rotate(q, cos, sin), rope_rotate(k, cos, sin)
     qh = q.transpose(1, 2)                          # [B, H, 1, D]
     bidx = torch.arange(B, device=x.device)
     Smax = cache_k.shape[2]
-    k1, v1 = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
-    pos_w = pos_b
-    if drop_out_of_range:
-        pos_w = pos_b.clamp(max=Smax - 1)
-        keep = (pos_b < Smax)[:, None, None]
-        k1 = torch.where(keep, k1, cache_k[bidx, :, pos_w])
-        v1 = torch.where(keep, v1, cache_v[bidx, :, pos_w])
-    cache_k[bidx, :, pos_w] = k1
-    cache_v[bidx, :, pos_w] = v1
+    pos_w = pos_b.clamp(max=Smax - 1)
+    keep = (pos_b < Smax)[:, None, None]
+    cache_k[bidx, :, pos_w] = torch.where(keep, k[:, 0].to(cache_k.dtype),
+                                          cache_k[bidx, :, pos_w])
+    cache_v[bidx, :, pos_w] = torch.where(keep, v[:, 0].to(cache_v.dtype),
+                                          cache_v[bidx, :, pos_w])
     groups = cfg.n_heads // cfg.n_kv_heads
     scale = cfg.d_head ** -0.5
     # grouped-query einsum: the G-times-repeated KV is never materialized;

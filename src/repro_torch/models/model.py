@@ -183,8 +183,7 @@ def _encdec_block_apply(blk, x, enc_kv, cfg, *, pos=None, cache=None,
                      "v": tf._pad_kv(vh, max_len)}
     else:
         m, ck, cv = attention_decode(blk.self, h, cache["k"], cache["v"],
-                                     pos, cfg, use_rope=cfg.use_rope,
-                                     drop_out_of_range=True)
+                                     pos, cfg, use_rope=cfg.use_rope)
         cache = dict(cache, k=ck, v=cv)
     x = x + m
     h = norm(blk.norm2, x)
@@ -235,6 +234,10 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> LMParams:
     not reproduced."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    return _init(gen, cfg, device)
+
+
+def _init(gen, cfg: ModelConfig, device) -> LMParams:
     dt = cfg.param_dtype
 
     def normal(shape):
@@ -257,6 +260,96 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> LMParams:
     pos = normal((cfg.learned_pos, cfg.d_model)) if cfg.learned_pos else None
     return LMParams(embed, lm_head, ninit(cfg.d_model, device), stack,
                     pos=pos)
+
+
+# --------------------------------------------------------------------------
+# sharding metadata: logical axes and abstract values
+# --------------------------------------------------------------------------
+
+# The logical axes of each leaf, as the reference's init functions name
+# them (repro/models/{layers,rglru,rwkv6}.py), by the dict that holds it.
+_NORM = {"scale": ("embed",), "bias": ("embed",)}
+_ATTN = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+         "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+         "bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)}
+_MLP = {"w_up": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
+        "w_down": ("mlp", "embed")}
+_MOE = {"router": ("embed", None), "w_up": ("experts", "embed", "mlp"),
+        "w_gate": ("experts", "embed", "mlp"),
+        "w_down": ("experts", "mlp", "embed"), "shared": _MLP}
+_RGLRU = {"w_x": ("embed", "mlp"), "w_y": ("embed", "mlp"),
+          "conv": (None, "mlp"), "w_r": ("mlp", None), "w_i": ("mlp", None),
+          "lam": ("mlp",), "w_o": ("mlp", "embed")}
+_LORA = {"a": ("embed", None), "b": (None, "embed")}
+_TIMEMIX = {**{f"mu_{k}": ("embed",) for k in ("base", "w", "k", "v", "r",
+                                                "g")},
+            "lora_mix": _LORA, "lora_w": _LORA, "w0": ("embed",),
+            "u": ("embed",), "ln_scale": ("embed",),
+            **{k: ("embed", "heads") for k in ("w_r", "w_k", "w_v", "w_g")},
+            "w_o": ("heads", "embed")}
+_CHANMIX = {"mu_k": ("embed",), "mu_r": ("embed",), "w_k": ("embed", "mlp"),
+            "w_v": ("mlp", "embed"), "w_r": ("embed", None)}
+_TOP = {"embed": ("vocab", "embed"), "lm_head": ("embed", "vocab"),
+        "pos": (None, "embed"), "enc_pos": (None, "embed"),
+        "dec_pos": (None, "embed"), "final_norm": _NORM, "enc_norm": _NORM}
+
+
+def _block_tables(blk) -> dict:
+    """The tables of a block's parameter dicts, by the block's kind and
+    feed-forward (an MoE holds a router)."""
+    if isinstance(blk, EncDecBlock):
+        return {"norm1": _NORM, "norm2": _NORM, "norm3": _NORM,
+                "self": _ATTN, "cross": _ATTN, "ffn": _MLP}
+    mixer = {"attn": _ATTN, "local": _ATTN, "rglru": _RGLRU,
+             "rwkv": _TIMEMIX}[blk.kind]
+    ffn = (_MOE if "router" in blk.ffn else
+           _CHANMIX if blk.kind == "rwkv" else _MLP)
+    return {"norm1": _NORM, "norm2": _NORM, "mixer": mixer, "ffn": ffn}
+
+
+def module_param_axes(params: LMParams) -> dict:
+    """``named_parameters()`` name -> logical axes of ``params``.  The
+    reference stacks scanned layers on a leading ``"layers"`` axis (rule
+    ``("layers", None)``: never sharded); the port's layers are modules of
+    their own, so each leaf has the rest of the reference's tuple."""
+    out = {}
+    for name, t in params.named_parameters():
+        path = name.split(".")
+        if path[0] in ("stack", "encoder", "decoder"):
+            blk = getattr(params, path[0])[int(path[1])]
+            table, path = _block_tables(blk), path[2:]
+        else:
+            table = _TOP
+        for part in path:
+            table = table[part]
+        if len(table) != t.dim():
+            raise ValueError(f"{name}: axes {table} for shape "
+                             f"{tuple(t.shape)}")
+        out[name] = table
+    return out
+
+
+def _abstract_module(cfg: ModelConfig) -> LMParams:
+    """The parameters of ``cfg`` on the ``meta`` device: shapes and
+    dtypes, no storage (a full-size config costs no memory)."""
+    return _init(None, cfg, torch.device("meta"))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    return module_param_axes(_abstract_module(cfg))
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """``named_parameters()`` name -> meta tensor of ``cfg``."""
+    return {k: t.detach() for k, t in
+            _abstract_module(cfg).named_parameters()}
+
+
+def param_specs(cfg: ModelConfig):
+    """(abstract values, logical axes), each keyed by parameter name."""
+    m = _abstract_module(cfg)
+    return ({k: t.detach() for k, t in m.named_parameters()},
+            module_param_axes(m))
 
 
 def _block_count(kind, cfg) -> int:
@@ -489,6 +582,7 @@ def decode_step(params: LMParams, cache, tokens, pos, cfg: ModelConfig):
     return _final(params, x, cfg)[:, 0], cache
 
 
-__all__ = ["EncDecBlock", "LMParams", "ModelConfig", "cast_for_compute",
-           "count_params", "decode_step", "forward", "init_cache",
-           "init_params", "loss_fn", "prefill"]
+__all__ = ["EncDecBlock", "LMParams", "ModelConfig", "abstract_params",
+           "cast_for_compute", "count_params", "decode_step", "forward",
+           "init_cache", "init_params", "loss_fn", "module_param_axes",
+           "param_axes", "param_specs", "prefill"]

@@ -1,8 +1,14 @@
 """Parameter init helpers of the LM stack.
 
 Counterpart of ``repro/models/param.py``'s init helpers.  The reference
-pairs every leaf with logical sharding axes for its TPU meshes; on one
-card there is nothing to shard, so the port keeps plain tensors.  Random
+pairs every leaf with its logical sharding axes at init (``Param``); the
+port keeps plain tensors and names the axes apart, per parameter name
+(:func:`repro_torch.models.param_axes`, for
+:mod:`repro_torch.parallel.sharding`).  The logical names: ``embed``
+(d_model; FSDP over the data axes), ``heads`` / ``kv_heads`` (attention
+head dims), ``mlp`` (d_ff), ``vocab``, ``experts`` (all over ``model``),
+None (replicated).  The reference's ``layers`` axis of a scanned stack
+has no counterpart: the port's layers are modules of their own.  Random
 draws come from a ``torch.Generator`` on the parameters' device and do not
 reproduce JAX's streams: tests carry JAX weights over with
 :func:`repro_torch.convert.lm_params_from_jax`.

@@ -58,6 +58,13 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
+def global_norm(grads) -> torch.Tensor:
+    """The 0-d float32 global norm of a name -> gradient dict (squares
+    summed leaf by leaf, in the dict's order)."""
+    return torch.sqrt(sum(g.float().square().sum()
+                          for g in named_tensors(grads).values()))
+
+
 class AdamWState(NamedTuple):
     step: torch.Tensor      # 0-d int32: updates taken
     m: dict                 # name -> first moment, ``state_dtype``
@@ -86,15 +93,18 @@ class AdamW:
             m=zeros(), v=zeros())
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, gnorm=None):
         """Returns ``(updates, state, gnorm)``: ``updates`` a name ->
         tensor dict in the parameters' dtypes, ``state`` the next state
         (its moments are ``state``'s tensors, written in place),
-        ``gnorm`` the global gradient norm before clipping."""
+        ``gnorm`` the global gradient norm before clipping.  ``gnorm``
+        given, it is the norm (a sharded step passes the whole gradient's
+        :func:`global_norm` with its shards of the gradient, moments and
+        parameters: every other term is elementwise)."""
         grads, leaves = named_tensors(grads), named_tensors(params)
         step = state.step + 1
         lr = self.lr(step) if callable(self.lr) else self.lr
-        gn = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+        gn = global_norm(grads) if gnorm is None else gnorm
         clip = torch.full_like(gn, self.grad_clip)   # scalar / t would
         scale = torch.clamp(clip / gn.clamp_min(1e-12), max=1.0)  # round twice
         t = step.to(torch.float32)
@@ -131,4 +141,4 @@ class AdamW:
         return params
 
 
-__all__ = ["AdamW", "AdamWState", "cosine_schedule"]
+__all__ = ["AdamW", "AdamWState", "cosine_schedule", "global_norm"]

@@ -5,9 +5,12 @@ writes) and fault tolerance."""
 from .checkpoint import (CheckpointHandle, latest_step, read_checkpoint_arrays,
                          restore_checkpoint, save_checkpoint)
 from .fault import FaultConfig, StragglerDetector, simulate_failures
-from .train_step import TrainState, init_train_state, make_train_step
+from .train_step import (ShardedParams, TrainState, init_train_state,
+                         make_train_step, shard_train_state,
+                         unshard_train_state)
 
-__all__ = ["CheckpointHandle", "FaultConfig", "StragglerDetector",
-           "TrainState", "init_train_state", "latest_step",
-           "make_train_step", "read_checkpoint_arrays",
-           "restore_checkpoint", "save_checkpoint", "simulate_failures"]
+__all__ = ["CheckpointHandle", "FaultConfig", "ShardedParams",
+           "StragglerDetector", "TrainState", "init_train_state",
+           "latest_step", "make_train_step", "read_checkpoint_arrays",
+           "restore_checkpoint", "save_checkpoint", "shard_train_state",
+           "simulate_failures", "unshard_train_state"]

@@ -79,7 +79,13 @@ def test_every_module_imports_with_jax_blocked():
                  "repro_torch.configs.recurrentgemma_2b",
                  "repro_torch.configs.rwkv6_7b",
                  "repro_torch.configs.whisper_medium",
-                 "repro_torch.configs.llava_next_34b"):
+                 "repro_torch.configs.llava_next_34b",
+                 "repro_torch.parallel",
+                 "repro_torch.parallel.sharding",
+                 "repro_torch.parallel.act",
+                 "repro_torch.parallel.pipeline",
+                 "repro_torch.launch.mesh",
+                 "repro_torch.kernels.spike_prop.ref"):
         assert name in names, name
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

@@ -128,6 +128,37 @@ def test_decode_with_vector_positions_matches_reference(lm):
                    rtol=1e-5)
 
 
+@pytest.mark.parametrize("pos", [[32, 32], [33, 40], [32, 7]],
+                         ids=["at_max_len", "past_max_len", "mixed"])
+def test_decode_past_the_cache_drops_the_write(lm, pos):
+    """A position >= max_len (32) drops its kv write, as the reference's
+    scatter does, instead of raising: the logits at the decode tolerance,
+    the cache as the reference leaves it (an in-range slot beside it
+    still writes)."""
+    rc, pc, rp, pp = lm
+    toks = _tokens(rc, 2, 21, 9)
+    _, rcache = ref_prefill(rp, {"tokens": jnp.asarray(toks[:, :20])}, rc,
+                            32)
+    pos = np.array(pos, np.int32)
+    with torch.inference_mode():
+        _, pcache = prefill(pp, {"tokens": torch.from_numpy(
+            toks[:, :20]).long()}, pc, 32)
+        before = [c["k"].clone() for c in pcache]
+        want, rcache = ref_decode(rp, rcache, jnp.asarray(toks[:, 20]),
+                                  jnp.asarray(pos), rc)
+        got, pcache = decode_step(pp, pcache,
+                                  torch.from_numpy(toks[:, 20]).long(),
+                                  torch.from_numpy(pos), pc)
+    _close(want, got)
+    for i, layer in enumerate(pcache):
+        for name in ("k", "v"):
+            _close(rcache["scan"][0][name][i], layer[name], atol=3e-5,
+                   rtol=1e-5)
+        for b, p in enumerate(pos):
+            if p >= 32:
+                assert torch.equal(layer["k"][b], before[i][b])
+
+
 def test_prefill_then_decode_matches_forward(lm):
     """The reference's own consistency check, on the port alone: decode
     after prefill(S-1) gives forward's last logits (tolerance as the
