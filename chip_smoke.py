@@ -28,8 +28,8 @@ kernel against its plain PyTorch version, then drives these paths:
   ``run_dist_trials()`` of 3 seeds through the same four, bitwise equal
   to each other and (``bitmap``) to ``simulate_distributed()`` per seed;
 * the exact engines on the same network and stimulus, after the
-  monolithic store is freed: ``binned`` and ``ell`` at the uncapped width
-  (1,000 steps) and ``dense`` (200 steps, W [n, n] = 77.57 GB built on
+  monolithic store is freed: ``binned`` (1,000 steps), ``ell`` at the
+  uncapped width and ``dense`` (100 steps, W [n, n] = 77.57 GB built on
   the card) bitwise equal to ``csr``, ``ell`` at the default cap beside
   it, ``run_trials`` of 10 seeds through ``binned`` and ``dense`` lane by
   lane equal to ``simulate()``;
@@ -98,7 +98,7 @@ kernel against its plain PyTorch version, then drives these paths:
 * ``repro_torch.parallel`` at phi3-medium-14b's full width, as ``gloo``
   ranks on the one card (``torchrun``; this script's ``--par-worker``
   mode is one rank): the sharded train step at 2 layers on a (data 1,
-  model 2) mesh, bitwise the same 3 steps run unsharded, and on a
+  model 2) mesh, bitwise the same 2 steps run unsharded, and on a
   (data 2, model 1) mesh at the microbatch tolerance; the GPipe schedule
   over 4 ranks, one full-width block a stage through the flash kernel,
   bitwise the blocks in sequence (36 and 24 flash launches);
@@ -106,6 +106,16 @@ kernel against its plain PyTorch version, then drives these paths:
   2), bitwise the reduction in one process; and the training CLI's mesh
   path (``--smoke --data 2 --model 1`` under ``torchrun``) printing the
   unsharded run's lines.
+
+The port's cost tools (``repro_torch.launch``) are held against the
+card: qwen2.5-14b's prefill and 4-slot decode step are counted on meta
+tensors (``launch.hlo.count``) beside the same calls on the card, whose
+time must be at least the counted bound, whose flash launches must be
+the counted ones (48 a prefill) and whose ``max_memory_allocated`` rise
+must be the counted peak's within PEAK_RTOL (a roofline table of the two
+calls is printed); and ``launch.flywire_dryrun`` counts one rank's
+window at P = 12 beside the emulated run's launches, and at 256 and 512
+ranks.
 
 The flash kernel is also timed at gemma3-12b's local layers (D 256,
 window 1,024, S 1,024 and 2,048) beside its plain version and
@@ -121,7 +131,8 @@ supervision and scenario numbers, a JSON line of the serving and
 resilience numbers, a JSON line of the exact engines' and the 12-rank
 path's numbers, a JSON line of the training numbers (float32 and
 bfloat16), a JSON line of the parallel phase's numbers, a JSON line of
-the LM families' numbers, a JSON line of
+the LM families' numbers, the roofline table and a JSON line
+of the cost tools' numbers, a JSON line of
 those activity cases
 (``background_storm``'s spikes among them), a JSON line of kernel
 measurements, the card's name and power limit, and ``{"ok": true,
@@ -172,15 +183,15 @@ DIST_RUNS = {"bitmap": ("bitmap", None), "event": ("event", None),
              "blocked_fused": ("blocked", "blocked_fused")}
 ACTIVITY = (0.001, 0.01, 1.0)   # fractions of the neurons spiking a step
 T_EXACT = 1_000                 # binned against csr
-T_EXACT_SHORT = 200             # ell uncapped and at the default cap, dense
+T_EXACT_SHORT = 100             # ell uncapped and at the default cap, dense
 T_EXACT_TRIALS = 100            # run_trials through binned and dense
 EXACT_TRIAL_SEEDS = 10
 T_EXACT_TRACE = 20              # profiled steps of each exact engine
 MP_CHUNK = 20                   # the 12-rank chunked run, killed after 2
 T_MP_NCCL = 200                 # one nccl rank, P = 1, step_response
 MP_TIMEOUT = 600                # seconds for a torchrun of 12 ranks
-T_SUPERVISE = 250               # chunked / telemetry / checkpoint runs
-SUPERVISE_CHUNK = 125
+T_SUPERVISE = 150               # chunked / telemetry / checkpoint runs
+SUPERVISE_CHUNK = 75
 SUPERVISE_REPS = 2              # one chunk and chunked, alternated
 T_SUPERVISE_TRACE = 100         # profiled in one chunk and in chunks of
 SUPERVISE_TRACE_CHUNK = 25      # this many steps
@@ -191,7 +202,7 @@ CLI_T_MS = 50.0                 # the CLI's full-size run: 500 steps
 CLI_CHUNK = 125
 CLI_DIST_T_MS = 5.0             # the partitioned CLI: 50 steps at P = 12
 CLI_DIST_CHUNK = 20
-T_SERVE = 300                   # the server's requests (sugar / step mix)
+T_SERVE = 200                   # the server's requests (sugar / step mix)
 SERVE_CHUNK = 50
 SERVE_BATCH = 4
 SERVE_SEEDS = 8
@@ -212,6 +223,15 @@ LM_REQUESTS = 8
 LM_PROMPT = (256, 1536)        # prompt lengths drawn in this range
 LM_NEW = 16
 LM_SLOTS, LM_MAX_LEN = 4, 2048
+# the prefill and the decode step counted on meta beside the card: CUDA
+# event calls timed, and the counted peak's rise over the resident bytes
+# against max_memory_allocated()'s (the tolerance PERF.md section 6 states)
+LM_COUNT_REPS = (2, 10)
+PEAK_RTOL, PEAK_ATOL_BYTES = 0.10, 128 << 20
+# the FlyWire dry run: one rank's window of the event scheme counted at
+# P = 12, beside the emulated run's launches, then at these rank counts
+# (512 too would add ~7 s: PERF.md section 4)
+DRY_STEPS, DRY_CORES = 18, (256,)
 FLASH_ATOL = 2e-4              # the JAX package's tolerance for its kernel
 # Two float32 runs whose attention sums in other orders may pick another
 # token where the top two logits (magnitude ~1) are this close: about a
@@ -252,7 +272,7 @@ BF16_LOSS_ATOL = 0.05
 # GPipe schedule over 4 ranks (one full-width block a stage), and
 # compressed_psum on one full-size gradient leaf (w_up) over the same 4
 PAR_LAYERS = 2
-PAR_BATCH, PAR_SEQ, PAR_STEPS = 4, 512, 3
+PAR_BATCH, PAR_SEQ, PAR_STEPS = 4, 512, 2
 PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 6, 512
 # (2, 1) against the unsharded run, leaf by leaf: the distance's norm
 # over the unsharded run's motion from the initial weights, and over
@@ -1693,18 +1713,6 @@ def phase_lif_path(smi):
     return out, ms_step
 
 
-def causal_pairs(S: int, window, causal: bool = True) -> int:
-    """(query, key) pairs a causal [window] mask keeps at length S (every
-    pair without causal or window)."""
-    import numpy as np
-    if not causal and window is None:
-        return S * S
-    i = np.arange(S)
-    lo = np.zeros(S, np.int64) if window is None else np.maximum(
-        0, i - window)
-    return int((i - lo + 1).sum())
-
-
 def flash_yardstick(smi, H, Hkv, S, D, window, label, seed, causal=True):
     """The kernel at one shape (B 1; causal unless told): CUDA events, the
     plain
@@ -1747,7 +1755,7 @@ def flash_yardstick(smi, H, Hkv, S, D, window, label, seed, causal=True):
     dev_ms = cuda_ms(lambda: FK.flash_attention_gqa(q, k, v, **kw), 20)
     plain_ms = cuda_ms(lambda: FK.flash_attention_plain(q, k, v, **kw), 5)
     lib_ms = cuda_ms(library, 20)
-    flops = 4 * D * B * H * causal_pairs(S, window, causal)
+    flops = 4 * D * B * H * FK.kept_pairs(S, S, causal, window)
     nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
     bound = max(3 * flops / TF32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     bound_f32 = max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
@@ -1974,6 +1982,7 @@ def phase_lm(smi):
     from repro_torch.configs import qwen2_5_14b
     from repro_torch.models import count_params, decode_step, init_params
     from repro_torch.models import init_cache, prefill
+    from repro_torch.models.model import _abstract_module
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dc.replace(qwen2_5_14b.CONFIG, attention_impl="pallas")
     plain_cfg = dc.replace(cfg, attention_impl="chunked")
@@ -2019,7 +2028,25 @@ def phase_lm(smi):
         print(f"decode bound: {n_params * 4 / 1e9:.3f} GB of weights at "
               f"3.35 TB/s = {n_params * 4 / HBM_BYTES_PER_S * 1e3:.3f} ms",
               flush=True)
-        del cache
+        # the same two calls counted on meta (repro_torch.launch.hlo)
+        meta = _abstract_module(cfg)
+        t_m = torch.empty((1, S), dtype=torch.int64, device="meta")
+        cache_m = init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device="meta")
+        tok_m = torch.empty(LM_SLOTS, dtype=torch.int64, device="meta")
+        pos_m = torch.empty(LM_SLOTS, dtype=torch.int32, device="meta")
+        roof = [counted_beside_card(
+            f"qwen2.5-14b prefill of {S} tokens", cfg,
+            lambda: prefill(meta, {"tokens": t_m}, cfg, LM_MAX_LEN),
+            (meta, t_m),
+            lambda: prefill(params, {"tokens": t}, cfg, LM_MAX_LEN),
+            LM_COUNT_REPS[0], smi, flash_want=cfg.n_layers),
+            counted_beside_card(
+            f"qwen2.5-14b decode step of {LM_SLOTS} slots", cfg,
+            lambda: decode_step(meta, cache_m, tok_m, pos_m, cfg),
+            (meta, cache_m, tok_m, pos_m),
+            lambda: decode_step(params, cache, tok4, pos4, cfg),
+            LM_COUNT_REPS[1], smi, flash_want=0)]
+        del cache, meta, cache_m
     print(f"qwen2.5-14b serving: flash run {secs:.3f} s, plain run "
           f"{plain_secs:.3f} s, {differing} of {len(toks)} requests differ "
           f"in tokens; prefill logits |diff| {d_logit:.3e}; one prefill of "
@@ -2029,7 +2056,88 @@ def phase_lm(smi):
           flush=True)
     del params
     torch.cuda.empty_cache()
-    return n_flash
+    return n_flash, roof
+
+
+def counted_beside_card(label, cfg, meta_fn, resident, cuda_fn, reps, smi,
+                        flash_want=None):
+    """One call counted on meta tensors (repro_torch.launch.hlo.count,
+    ``resident`` live throughout) and run on the card: its time by CUDA
+    events over ``reps`` calls, its flash launches by the wrapper's count
+    and its peak by torch.cuda.max_memory_allocated() over one call.
+    Gates: the counted bound (FLOPs at the compute dtype's peak, bytes at
+    the HBM rate; repro_torch.launch.roofline.H100) is at most the
+    measured time; the counted flash launches are the measured ones (and
+    ``flash_want``); the counted peak's rise over the resident bytes is
+    the measured rise within PEAK_RTOL or PEAK_ATOL_BYTES.  Returns the
+    roofline row."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import hlo
+    from repro_torch.launch.roofline import H100
+    t0 = time.perf_counter()
+    with torch.inference_mode(), hlo.count("meta", resident=resident) as c:
+        resident_bytes = c.live
+        meta_fn()
+    count_s = time.perf_counter() - t0
+    cost = c.cost
+    counted_rise = cost.peak_bytes - resident_bytes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    base_req = torch.cuda.memory_stats().get("requested_bytes.all.current",
+                                             0)
+    torch.cuda.reset_peak_memory_stats()
+    FK.reset_launches()
+    cuda_fn()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    req_rise = torch.cuda.memory_stats().get("requested_bytes.all.peak",
+                                             0) - base_req
+    n_flash = FK.LAUNCHES["flash_attention"]
+    ms = cuda_ms(cuda_fn, reps, warmup=1)
+    dtype = str(cfg.compute_dtype or cfg.param_dtype).replace("torch.", "")
+    t_ops = cost.flops / H100["flops"][dtype] * 1e3
+    t_bytes = cost.bytes / H100["hbm_bw"] * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    counted_flash = cost.kernels.get("flash_attention", 0)
+    print(f"{label}: counted on meta in {count_s:.3f} s: {cost.flops:.6e} "
+          f"FLOPs, {cost.bytes:.6e} B, {cost.launches} launches "
+          f"({counted_flash} flash), peak {cost.peak_bytes} B ({counted_rise} "
+          f"B over the {resident_bytes} B resident); on the card "
+          f"{ms:.3f} ms (CUDA events, {reps} calls), {n_flash} flash "
+          f"launches, max_memory_allocated rise {rise} B (requested "
+          f"{req_rise} B); bound {bound_ms:.3f} ms by "
+          f"{'operations' if t_ops >= t_bytes else 'bytes'} "
+          f"({100 * bound_ms / ms:.2f}% of the measured); card {smi}",
+          flush=True)
+    check(bound_ms <= ms, f"{label}: counted bound {bound_ms:.3f} ms above "
+          f"the measured {ms:.3f} ms")
+    check(counted_flash == n_flash and (flash_want is None
+                                        or n_flash == flash_want),
+          f"{label}: {counted_flash} flash launches counted, {n_flash} "
+          f"measured, {flash_want} expected")
+    check(abs(counted_rise - rise) <= max(PEAK_RTOL * rise, PEAK_ATOL_BYTES),
+          f"{label}: counted peak rise {counted_rise} B against the "
+          f"measured {rise} B")
+    return {"call": label, "flops": cost.flops, "bytes": cost.bytes,
+            "launches": cost.launches, "flash_launches": n_flash,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ms": ms, "share": bound_ms / ms, "count_s": count_s,
+            "peak_rise_counted": counted_rise, "peak_rise_measured": rise,
+            "peak_rise_requested": req_rise}
+
+
+def print_roofline(rows, smi) -> None:
+    print("roofline of the counted calls (bound: the larger of the counted "
+          f"FLOPs at the dtype's peak and bytes at 3.35 TB/s; card {smi}):",
+          flush=True)
+    print("| call | FLOPs | bytes | launches | bound ms | by | measured ms "
+          "| share |", flush=True)
+    for r in rows:
+        print(f"| {r['call']} | {r['flops']:.4e} | {r['bytes']:.4e} | "
+              f"{r['launches']} | {r['bound_ms']:.3f} | {r['bound_by']} | "
+              f"{r['ms']:.3f} | {100 * r['share']:.2f}% |", flush=True)
 
 
 def attention_layers(cfg) -> int:
@@ -3079,10 +3187,67 @@ def phase_distributed(c, stim, smi):
     print(f"saved the P = {P_DIST} DCSR and stimulus for the ranks in "
           f"{time.perf_counter() - t0:.3f} s "
           f"({os.path.getsize(emulated['data']) / 1e6:.1f} MB)", flush=True)
-    del a, b, base, state, d, greedy
+    del a, b, base, state
+    emulated["dryrun"] = phase_flywire_dryrun(
+        c, d, cfg, stim, None if per_step is None else
+        sum(n for _, n in per_step.values()), smi)
+    del d, greedy
     gc.collect()
     torch.cuda.empty_cache()
     return yard, launches, ms, trials, resilient, emulated
+
+
+@phase("FlyWire dry run: one rank's window counted")
+def phase_flywire_dryrun(c, d, cfg, stim, measured, smi):
+    """repro_torch.launch.flywire_dryrun's count of one rank's window
+    (DRY_STEPS steps, the event scheme, meta tensors) on the P = 12
+    partition the phase above ran, with its stimulus, beside the launches
+    a step ``measured`` by that phase's profile of the emulated run.
+    Then the reference's partitioning of the same connectome for each of
+    DRY_CORES ranks, one rank's window counted: its resident bytes and
+    peak.  Returns the numbers."""
+    from repro_torch.core.capacity import CapacityConfig
+    from repro_torch.launch import flywire_dryrun as FD
+    cap = CapacityConfig(spike_capacity=256, syn_budget=65536)
+    t0 = time.perf_counter()
+    cost, resident = FD.count_window(d, cfg, "event", DRY_STEPS, cap,
+                                     stimulus=stim)
+    a_step = cost.launches / DRY_STEPS
+    print(f"flywire dry run, P = {d.n_parts} ({d.part_size} slots a rank, "
+          f"counted in {time.perf_counter() - t0:.3f} s): {a_step:.1f} "
+          f"launches a step counted for one rank of the event scheme, x "
+          f"{d.n_parts} = {a_step * d.n_parts:.1f}; the emulated "
+          f"blocked_fused run above {measured} launches a step "
+          f"(profiler; PERF.md section 6 has the emulated event run's); "
+          f"resident {resident} B, peak "
+          f"{cost.peak_bytes} B a rank; {cost.bytes:.6e} B and "
+          f"{cost.link_bytes:.6e} link B a window", flush=True)
+    out = {f"cores{d.n_parts}": {
+        "launches_per_step": a_step, "measured_emulated_per_step": measured,
+        "resident_bytes": resident, "peak_bytes": cost.peak_bytes,
+        "bytes_per_window": cost.bytes, "link_bytes": cost.link_bytes}}
+    for cores in DRY_CORES:
+        t0 = time.perf_counter()
+        dc = FD.partition(c, cores)
+        t1 = time.perf_counter()
+        cost, resident = FD.count_window(dc, cfg, "event", DRY_STEPS, cap)
+        terms = FD.window_terms(cost, DRY_STEPS, cfg.params.dt)
+        out[f"cores{cores}"] = {
+            "part_size": dc.part_size, "s_max": dc.s_max,
+            "resident_bytes": resident, "peak_bytes": cost.peak_bytes,
+            "launches_per_step": cost.launches / DRY_STEPS,
+            "bytes_per_window": cost.bytes, "link_bytes": cost.link_bytes,
+            "modelled_window_ms": terms["bound_s"] * 1e3,
+            "partition_s": t1 - t0, "count_s": time.perf_counter() - t1}
+        print(f"flywire dry run at {cores} ranks (U {dc.part_size}, S_max "
+              f"{dc.s_max}): resident {resident} B and peak "
+              f"{cost.peak_bytes} B a rank; "
+              f"{cost.launches / DRY_STEPS:.1f} launches a step; a window "
+              f"{cost.bytes:.6e} B, {cost.link_bytes:.6e} link B, modelled "
+              f"{terms['bound_s'] * 1e3:.4f} ms on {smi} (nccl ranks); "
+              f"partition {t1 - t0:.3f} s, count "
+              f"{out[f'cores{cores}']['count_s']:.3f} s", flush=True)
+    return out
 
 
 WORK_DIR = os.path.join("build", "chip_smoke")   # under the checkout
@@ -4193,7 +4358,11 @@ def par_worker(spec_path: str) -> int:
 
 
 def train_lines(text: str) -> list:
-    return [ln for ln in text.splitlines() if ln.startswith("[train]")]
+    """The training CLI's ``[train]`` lines but its straggler report,
+    which flags steps slow on the wall clock (a z-score over the run's
+    step times): it differs between two runs of the same steps."""
+    return [ln for ln in text.splitlines() if ln.startswith("[train]")
+            and not ln.startswith("[train] stragglers flagged")]
 
 
 @phase("parallel/ at phi3-medium-14b's width: sharded training, GPipe, "
@@ -4535,6 +4704,7 @@ def flywire_section(smi):
      emulated) = phase_distributed(c, stim, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    dryrun = emulated.pop("dryrun")
     multiprocess = phase_multiprocess(c, CONFIG.sim, emulated, smi)
     del stim, c
     gc.collect()
@@ -4550,7 +4720,7 @@ def flywire_section(smi):
              "background_storm_busy_ms_per_step": storm_busy,
              "scenario_launches": scenario_launches, "serving": serving,
              "resilient_p12": resilient, "exact_engines": exact,
-             "multiprocess_p12": multiprocess}
+             "multiprocess_p12": multiprocess, "flywire_dryrun": dryrun}
     return (yard, activity, launches, sharded, sharded_launches, lanes,
             dist_trials_out, extra)
 
@@ -4584,7 +4754,7 @@ def main() -> int:
     for name, (ms, plain_ms, bound, lib_ms, err, n) in lif_yard.items():
         yard[name] = (ms, plain_ms, bound, lib_ms, err)
         launches[name] = n
-    launches["flash_attention"] = phase_lm(smi)
+    launches["flash_attention"], roof = phase_lm(smi)
     family_launches, families = phase_lm_families(smi)
     w_launches, families["whisper-medium"] = phase_whisper(smi)
     family_launches["whisper-medium"] = w_launches
@@ -4721,6 +4891,9 @@ def main() -> int:
     print(json.dumps({"training": training}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"lm_families": families}))
+    print_roofline(roof, smi)
+    print(json.dumps({"launch_tools": {
+        "roofline": roof, "flywire_dryrun": extra["flywire_dryrun"]}}))
     print(json.dumps({"activity": activity}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,7 +13,9 @@ rebuilt and a stale library is never loaded.  All the sources that
 
 :func:`function` returns a kernel's C launch function with its argument
 types set; :func:`stream` and :func:`raise_on` are the launch-side glue
-every wrapper uses.
+every wrapper uses.  A launch through ctypes is invisible to PyTorch's
+dispatcher, so a wrapper also reports its work with :func:`charge` to the
+counter of :mod:`repro_torch.launch.hlo`, when one is active.
 
 Nothing here runs at import time; the CPU tests import every module of the
 port on a machine with no nvcc.
@@ -38,6 +40,10 @@ BUILD_DIR = os.path.normpath(os.path.join(
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _FUNCTIONS: dict[tuple[str, str], object] = {}
+
+#: The active counters of :func:`repro_torch.launch.hlo.count`, the
+#: innermost last (it pushes and pops them).
+COUNTERS: list = []
 
 
 def nvcc_path() -> str:
@@ -130,6 +136,13 @@ def raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
+def charge(kernel: str, flops: float, nbytes: float) -> None:
+    """Charge one launch of ``kernel``, doing ``flops`` and moving
+    ``nbytes``, to the innermost active counter; nothing without one."""
+    if COUNTERS:
+        COUNTERS[-1].charge(kernel, flops, nbytes)
+
+
 def check_tensor(name: str, x, dtype, shape, device) -> None:
     """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: what a kernel's pointer arithmetic assumes."""
@@ -142,6 +155,6 @@ def check_tensor(name: str, x, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-__all__ = ["BUILD_DIR", "INCLUDE_DIR", "NVCC_FLAGS", "build", "check_tensor",
-           "function", "library_path", "load", "nvcc_path", "raise_on",
-           "stream"]
+__all__ = ["BUILD_DIR", "COUNTERS", "INCLUDE_DIR", "NVCC_FLAGS", "build",
+           "charge", "check_tensor", "function", "library_path", "load",
+           "nvcc_path", "raise_on", "stream"]

@@ -23,9 +23,13 @@ skipped, and a row whose every key is masked comes out as zeros.
 
 The wrapper takes the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device, or raises; ``LAUNCHES`` counts
-launches.  Neither is differentiable: the TPU kernel has no backward
-(``jax.grad`` through it raises), so the wrapper refuses operands that
-autograd would differentiate (:func:`refuse_grad`), on either device.
+launches.  On the ``meta`` device it returns an empty result of the right
+shape, so a step can be counted without memory
+(:mod:`repro_torch.launch.hlo`); on ``meta`` and CUDA alike it charges its
+work to an active counter (:func:`repro_torch.kernels.build.charge`).
+Neither is differentiable: the TPU kernel has no backward (``jax.grad``
+through it raises), so the wrapper refuses operands that autograd would
+differentiate (:func:`refuse_grad`), on either device.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import os
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -63,6 +68,17 @@ def _mask(Sq, Skv, causal, window, device):
     if window is not None:
         mask &= k_ids > q_ids - window - 1
     return mask
+
+
+def kept_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
+    """The (query, key) pairs the kernel's masks keep: query ``i`` sees
+    the keys ``j < Skv`` with ``j <= i`` (causal) and ``j >= i - window``
+    (window)."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(
+        0, i - window)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def refuse_grad(q, k, v) -> None:
@@ -118,20 +134,25 @@ def flash_attention_gqa(q, k, v, *, scale: float, causal: bool,
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      window=window)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_gqa: no kernel for {dev}")
     out = torch.empty_like(q)
-    # 16-byte copies need rows of whole 16-byte chunks on 16-byte bounds
-    vec = D % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (q, k, v))
-    rc = build.function(SOURCE, "flash_attention_launch", _ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv,
-        Sq, Skv, D, scale, int(causal), -1 if window is None else window,
-        int(vec), build.stream(dev))
-    build.raise_on(rc, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    if dev.type == "cuda":
+        # 16-byte copies need rows of whole 16-byte chunks on 16-byte
+        # bounds
+        vec = D % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (q, k, v))
+        rc = build.function(SOURCE, "flash_attention_launch", _ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            Hkv, Sq, Skv, D, scale, int(causal),
+            -1 if window is None else window, int(vec), build.stream(dev))
+        build.raise_on(rc, "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+    build.charge("flash_attention",
+                 4 * B * H * D * kept_pairs(Sq, Skv, causal, window),
+                 4 * (2 * q.numel() + 2 * k.numel()))
     return out
 
 
 __all__ = ["LAUNCHES", "MAX_HEAD_DIM", "SOURCE", "SOURCES",
-           "flash_attention_gqa", "flash_attention_plain", "refuse_grad",
-           "reset_launches"]
+           "flash_attention_gqa", "flash_attention_plain", "kept_pairs",
+           "refuse_grad", "reset_launches"]

@@ -29,10 +29,15 @@ do not call it.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import itertools
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import hlo
 from .param import bias_param, dense_param, expert_param, scale_param
 
 
@@ -57,22 +62,187 @@ def _einsum(eq, a, b):
     return torch.einsum(eq, a, b)
 
 
-def scan_in_chunks(steps, state, xs, remat=True, chunk=64):
-    """``steps(state, *xs) -> (state, ys)`` over the leading (time) axis
-    of the tensors ``xs``, for the recurrent blocks' scans.  Under grad
-    with ``remat``, each run of ``chunk`` steps goes through
+_RECOMPUTING = contextvars.ContextVar("scan_chunk_recomputing",
+                                      default=False)
+
+
+@contextlib.contextmanager
+def _recomputation():
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def _chunk_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: nothing for the
+    forward pass, :func:`recomputing` true for the recomputation."""
+    return contextlib.nullcontext(), _recomputation()
+
+
+def recomputing() -> bool:
+    """Whether a checkpointed chunk of :func:`scan_in_chunks` is being
+    recomputed for its backward pass: a step may then skip a result that
+    nothing in the backward reads, as XLA drops it from the reference's
+    rematerialized chunk."""
+    return _RECOMPUTING.get()
+
+
+def _loop(step, n_xs, state, *args):
+    """``step`` over the leading (time) axis of ``args[:n_xs]``, the rest
+    passed to every step; returns (state, the outputs stacked)."""
+    xs, consts = args[:n_xs], args[n_xs:]
+    ys = []
+    for x_t in zip(*(x.unbind(0) for x in xs)):
+        state, y = step(state, *x_t, *consts)
+        ys.append(y)
+    return state, torch.stack(ys)
+
+
+def scan_in_chunks(step, state, xs, remat=True, chunk=64, consts=()):
+    """``step(state, *x_t, *consts) -> (state, y_t)`` over the leading
+    (time) axis of the tensors ``xs``, for the recurrent blocks' scans.
+    Under grad with ``remat``, each run of ``chunk`` steps goes through
     ``torch.utils.checkpoint``: the backward pass keeps one state a chunk
     and recomputes the steps inside, as the reference's ``lax.scan`` of a
-    ``jax.checkpoint``-ed chunk step does.  Returns (state, ys
-    concatenated over time)."""
-    if not (remat and torch.is_grad_enabled()):
-        return steps(state, *xs)
+    ``jax.checkpoint``-ed chunk step does.  Returns (state, the y_t
+    stacked over time).
+
+    Counted on the ``meta`` device (:func:`repro_torch.launch.hlo.count`)
+    the step runs once under ``hlo.repeat(T)`` (:class:`_CountedScan`
+    under grad)."""
+    T = xs[0].shape[0]
+    remat = remat and torch.is_grad_enabled()
+    if T > 1 and hlo.repeating(xs[0]):
+        if torch.is_grad_enabled() and (state.requires_grad or any(
+                x.requires_grad for x in xs)):
+            sizes = ([min(chunk, T - t0) for t0 in range(0, T, chunk)]
+                     if remat else None)
+            return _CountedScan.apply(step, sizes, len(xs), state, *xs,
+                                      *consts)
+        with hlo.repeat(T, "scan"):
+            state, y = step(state, *(x[0] for x in xs), *consts)
+        with hlo.hold((T - 1) * hlo.tensor_bytes(y)):
+            return state, torch.stack([y] * T)
+    if not remat:
+        return _loop(step, len(xs), state, *xs, *consts)
     parts = []
-    for t0 in range(0, xs[0].shape[0], chunk):
-        state, ys = checkpoint(steps, state, *(x[t0:t0 + chunk] for x in xs),
-                               use_reentrant=False)
+    for x_c in zip(*(x.split(chunk) for x in xs)):
+        state, ys = checkpoint(_loop, step, len(xs), state, *x_c, *consts,
+                               use_reentrant=False,
+                               context_fn=_chunk_contexts)
         parts.append(ys)
     return state, torch.cat(parts)
+
+
+class _CountedScan(torch.autograd.Function):
+    """:func:`scan_in_chunks` under grad, counted on ``meta``: one step
+    stands for all T, forward and backward each under ``hlo.repeat(T)``.
+    With ``sizes`` (remat: the chunks' lengths) the forward keeps no graph
+    and the backward recomputes it first, as the checkpointed chunks do;
+    the stacks and concatenations are the loop's.  The other T - 1 steps'
+    retained bytes (outputs, and what the graph saves) are held as live
+    while the graph of one chunk (or of the whole scan) would be.  A
+    constant's gradient sums the T steps' (T - 1 adds)."""
+
+    @staticmethod
+    def _step(step, state, xs, consts, graph):
+        T = xs[0].shape[0]
+        live0 = hlo.active().live
+        with torch.enable_grad() if graph else torch.no_grad():
+            s_in = state.detach().requires_grad_(graph)
+            x_in = [t.detach().requires_grad_(graph and t.requires_grad)
+                    for t in [x[0] for x in xs] + list(consts)]
+            with hlo.repeat(T, "scan"):
+                s_out, y = step(s_in, *x_in)
+        # without a graph a step keeps its output; the state goes on
+        kept = (hlo.active().live - live0 if graph
+                else hlo.tensor_bytes(y))
+        return (s_in, x_in, s_out, y), kept
+
+    @staticmethod
+    def forward(ctx, step, sizes, n_xs, state, *args):
+        ctx.set_materialize_grads(False)
+        xs, consts = args[:n_xs], args[n_xs:]
+        T = xs[0].shape[0]
+        ctx.step, ctx.sizes, ctx.n_xs = step, sizes, n_xs
+        ctx.save_for_backward(state, *args)
+        graph, kept = _CountedScan._step(step, state, xs, consts,
+                                         sizes is None)
+        ctx.graph = graph if sizes is None else None
+        ctx.held = (T - 1) * kept
+        hlo.active().hold(ctx.held)
+        y = graph[3].detach()
+        ys = (torch.stack([y] * T) if sizes is None else
+              torch.cat([torch.stack([y] * c) for c in sizes]))
+        return graph[2].detach(), ys
+
+    @staticmethod
+    def backward(ctx, g_state, g_ys):
+        state, *args = ctx.saved_tensors
+        xs, consts = args[:ctx.n_xs], args[ctx.n_xs:]
+        T, sizes, counter = xs[0].shape[0], ctx.sizes, hlo.active()
+        counter.hold(-ctx.held)
+        held = 0
+        if sizes is None:
+            s_in, x_in, s_out, y = ctx.graph
+            held = ctx.held
+        else:
+            with _recomputation():
+                (s_in, x_in, s_out, y), kept = _CountedScan._step(
+                    ctx.step, state, xs, consts, True)
+            held = (max(sizes) - 1) * kept
+            # checkpoint's recomputation stops early: a chunk's stack, and
+            # its last step's last op (the state update, which only saves
+            # its inputs), are not run again
+            flops, nbytes = counter.last_op
+            k = len(sizes)
+            counter.uncount(k * flops, k * nbytes, k)
+        g_y = torch.empty_like(y) if g_ys is None else g_ys[0]
+        # a step's state gradient comes from the next step; the scan's
+        # last step has none when the final state is unused, and its first
+        # computes none when the initial state needs none
+        g_s = torch.empty_like(s_out) if g_state is None else g_state
+        n_last = int(g_state is None)
+        n_first = int(not state.requires_grad)
+        x_want = [x for x in x_in if x.requires_grad]
+        calls = {"steps": (T - n_first - n_last, True, [s_out, y],
+                           [g_s, g_y]),
+                 "first": (n_first, False, [s_out, y], [g_s, g_y]),
+                 "last": (n_last, True, [y], [g_y])}
+        calls = {k: c for k, c in calls.items() if c[0] > 0}
+        got = {}
+        with hlo.hold(held):
+            for i, (name, (n, want_s, outs, gouts)) in enumerate(
+                    calls.items()):
+                with hlo.repeat(n, "scan backward"):
+                    g = torch.autograd.grad(
+                        outs, [s_in] * want_s + x_want, gouts,
+                        allow_unused=True, retain_graph=i + 1 < len(calls))
+                got[name] = g if want_s else (None, *g)
+        ctx.graph = None
+        grads = next(iter(got.values()))
+        g_args, j = [], 0
+        for i, xi in enumerate(x_in):
+            j += xi.requires_grad
+            g = grads[j] if xi.requires_grad else None
+            if g is not None and i < ctx.n_xs:
+                gs = [g] * T
+                if "last" in got and got["last"][j] is None:
+                    # the last step has none: autograd stacks an expanded
+                    # zero in its place
+                    gs[-1] = torch.zeros((), dtype=g.dtype,
+                                         device=g.device).expand(g.shape)
+                g = (torch.stack(gs) if sizes is None else torch.cat(
+                    [torch.stack(gs[t0:t0 + c]) for t0, c in zip(
+                        itertools.accumulate([0] + sizes[:-1]), sizes)]))
+            elif g is not None:
+                with hlo.repeat(T - 1, "scan constant's gradient"):
+                    g + g
+            g_args.append(g)
+        g_state_in = grads[0] if state.requires_grad else None
+        return (None, None, None, g_state_in, *g_args)
 
 
 # --------------------------------------------------------------------------
@@ -516,5 +686,5 @@ __all__ = ["attention_apply", "attention_decode", "attention_init",
            "layer_norm_init", "mlp_apply", "mlp_init", "moe_apply",
            "moe_capacity", "moe_combine", "moe_dispatch", "moe_init",
            "moe_route", "rms_norm",
-           "rms_norm_init", "rope", "scan_in_chunks", "stable_top_k",
-           "windowed_attention"]
+           "recomputing", "rms_norm_init", "rope", "scan_in_chunks",
+           "stable_top_k", "windowed_attention"]

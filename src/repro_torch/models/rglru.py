@@ -67,14 +67,11 @@ def _lru_coeffs(p, a):
     return alpha, beta * i * a32
 
 
-def _steps(h, alpha, drive):
-    """h_t = alpha_t * h_{t-1} + drive_t over the leading (time) axis of
-    ``alpha`` / ``drive`` [T, B, d]; returns (h_T, the stacked states)."""
-    hs = []
-    for t in range(alpha.shape[0]):
-        h = torch.addcmul(drive[t], alpha[t], h)
-        hs.append(h)
-    return h, torch.stack(hs)
+def _step(h, alpha_t, drive_t):
+    """One step of the recurrence, h_t = alpha_t * h_{t-1} + drive_t;
+    returns (h_t, h_t)."""
+    h = torch.addcmul(drive_t, alpha_t, h)
+    return h, h
 
 
 def linear_scan(alpha, drive, h0, remat=True):
@@ -83,8 +80,8 @@ def linear_scan(alpha, drive, h0, remat=True):
     :data:`CHUNK` steps under grad with ``remat``
     (:func:`repro_torch.models.layers.scan_in_chunks`).  Returns (hs [B,
     S, d], h_last)."""
-    h, hs = scan_in_chunks(_steps, h0, (alpha.transpose(0, 1),
-                                        drive.transpose(0, 1)), remat, CHUNK)
+    h, hs = scan_in_chunks(_step, h0, (alpha.transpose(0, 1),
+                                       drive.transpose(0, 1)), remat, CHUNK)
     return hs.transpose(0, 1), h
 
 

@@ -20,12 +20,10 @@ chunk step does.  Decode is :func:`timemix_apply` with S = 1.
 
 from __future__ import annotations
 
-from functools import partial
-
 import torch
 import torch.nn.functional as F
 
-from .layers import _einsum, _mm, scan_in_chunks
+from .layers import _mm, _promoted, recomputing, scan_in_chunks
 from .param import dense_param, scale_param
 
 HEAD = 64
@@ -77,16 +75,38 @@ def _ddlerp(p, x, x_prev):
                                       "mu_g"))]
 
 
-def _wkv_steps(u, state, r, k, v, w):
-    """The recurrence over the leading (time) axis of r/k/v/w [T, B, H,
-    64] from ``state`` [B, H, 64, 64]; returns (state, y [T, B, H, 64])."""
-    ys = []
-    uc = u[..., :, None]
-    for t in range(r.shape[0]):
-        kv = k[t][..., :, None] * v[t][..., None, :]          # [B,H,64,64]
-        ys.append(_einsum("bhij,bhi->bhj", state + uc * kv, r[t]))
-        state = torch.addcmul(kv, w[t][..., :, None], state)
-    return state, torch.stack(ys)
+class _Readout(torch.autograd.Function):
+    """A step's output ``einsum("bhij,bhi->bhj", a, r)``, a = S + diag(u)
+    k v^T.  Its backward forms the gradient wrt ``a``, the outer product
+    of ``r`` and the output's gradient, as a broadcast multiply (one
+    product an entry, as XLA computes it; autograd's einsum would run a
+    K = 1 matrix product), and the forward product is skipped while a
+    checkpointed chunk is recomputed, since nothing in the backward reads
+    the output (ROADMAP finding 15)."""
+
+    @staticmethod
+    def forward(ctx, a, r):
+        ctx.save_for_backward(a, r)
+        if recomputing():
+            return r.new_empty(r.shape)
+        return torch.einsum("bhij,bhi->bhj", a, r)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, r = ctx.saved_tensors
+        g_a = (r[..., :, None] * g[..., None, :]
+               if ctx.needs_input_grad[0] else None)
+        g_r = (torch.einsum("bhij,bhj->bhi", a, g)
+               if ctx.needs_input_grad[1] else None)
+        return g_a, g_r
+
+
+def _wkv_step(state, r, k, v, w, u):
+    """One step of the recurrence from ``state`` [B, H, 64, 64] with r/k/
+    v/w [B, H, 64] and ``u`` [H, 64]; returns (state, y [B, H, 64])."""
+    kv = k[..., :, None] * v[..., None, :]                    # [B,H,64,64]
+    y = _Readout.apply(*_promoted(state + u[..., :, None] * kv, r))
+    return torch.addcmul(kv, w[..., :, None], state), y
 
 
 def _wkv_scan(r, k, v, w, u, state, remat=True):
@@ -98,8 +118,8 @@ def _wkv_scan(r, k, v, w, u, state, remat=True):
     backward pass keeps one ``[B, H, 64, 64]`` state a chunk, not one a
     step (S x 1 MiB a sequence at 7B width)."""
     xs = tuple(t.transpose(0, 1) for t in (r, k, v, w))     # [S, B, H, 64]
-    state, ys = scan_in_chunks(partial(_wkv_steps, u), state, xs, remat,
-                               CHUNK)
+    state, ys = scan_in_chunks(_wkv_step, state, xs, remat, CHUNK,
+                               consts=(u,))
     return ys.transpose(0, 1), state
 
 

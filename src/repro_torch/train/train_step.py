@@ -157,8 +157,10 @@ def make_train_step(cfg, optimizer: AdamW, microbatches: int = 1,
 
     batch leaves: [B, ...] with B divisible by ``microbatches`` (on a
     mesh: the global batch, the same on every rank, B divisible by the
-    data axes' extent times ``microbatches``).  ``mesh``: the state is
-    :func:`init_train_state`'s on the same mesh.
+    data axes' extent times ``microbatches``; a B that does not divide
+    over the data axes is replicated, as the reference's layout does,
+    each data rank running every row, B divisible by ``microbatches``).
+    ``mesh``: the state is :func:`init_train_state`'s on the same mesh.
     """
     inv_m = float(np.float32(1) / np.float32(microbatches))
 
@@ -223,7 +225,8 @@ def make_train_step(cfg, optimizer: AdamW, microbatches: int = 1,
         sp = state.params
         module, specs = sp.module, sp.specs
         _materialize(sp, module)
-        rows = {k: shard_of(v, batch_spec(mesh, v.dim()), mesh)
+        rows = {k: shard_of(v, batch_spec(mesh, v.dim(),
+                                          v.shape[0] % n_dp == 0), mesh)
                 for k, v in batch.items()}
         loss, grads = loss_and_grads(module, rows)
         _release(module)

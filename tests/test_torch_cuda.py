@@ -1116,3 +1116,36 @@ def test_recurrentgemma_decode_on_the_card_matches_the_cpu(cuda):
         for k in a:
             np.testing.assert_allclose(a[k].cpu().numpy(), b[k].numpy(),
                                        atol=1e-4, err_msg=f"{i}.{k}")
+
+
+@pytest.mark.cuda
+def test_counter_on_the_card_equals_the_meta_count(cuda):
+    """repro_torch.launch.hlo.count over a real SMOKE qwen2.5 prefill with
+    the flash kernel (attention_impl="pallas") on the card equals the
+    same call counted on meta tensors: FLOPs, bytes, launches and peak;
+    flash is charged once a layer, and launched once a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import hlo
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.model import _abstract_module
+    cfg = dataclasses.replace(get_config("qwen2.5-14b", smoke=True),
+                              attention_impl="pallas")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 48)))
+    costs = {}
+    for dev in ("meta", "cuda"):
+        params = (_abstract_module(cfg) if dev == "meta"
+                  else init_params(0, cfg, device=cuda))
+        t = tokens.to(dev)
+        FK.reset_launches()
+        with torch.inference_mode(), hlo.count(dev, resident=(params, t)) \
+                as c:
+            prefill(params, {"tokens": t}, cfg, 64)
+        torch.cuda.synchronize()
+        costs[dev] = c.cost
+        launched = FK.LAUNCHES["flash_attention"]
+    meta, card = costs["meta"], costs["cuda"]
+    assert card.kernels == meta.kernels == {"flash_attention": cfg.n_layers}
+    assert launched == cfg.n_layers
+    assert (card.flops, card.bytes, card.launches, card.peak_bytes) == \
+        (meta.flops, meta.bytes, meta.launches, meta.peak_bytes)
