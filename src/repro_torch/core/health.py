@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.obs.phases import PhaseMarks
 
 from .capacity import CapacityConfig, escalate_capacity
 
@@ -331,10 +332,23 @@ def concat_records(chunks: list[dict], axis: int) -> dict:
             for k in chunks[0]}
 
 
-def _sync(carry) -> None:
-    device = _carries(carry)[0].counts.device
+def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _drain_marked(device: torch.device, marks, metrics) -> dict:
+    """Drain the device after a marked chunk, resolving the marks while it
+    finishes, and time the host's wait: the ``chunk`` event's ``phases``
+    and ``drain_s``; each phase is also observed as ``step.<name>``."""
+    t0 = time.monotonic()
+    seconds = marks.seconds()
+    _sync(device)
+    drain_s = time.monotonic() - t0
+    for name, sec in seconds.items():
+        metrics.observe(f"step.{name}", sec)
+    return {"phases": {name: round(sec, 9) for name, sec in seconds.items()},
+            "drain_s": round(drain_s, 6)}
 
 
 def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
@@ -358,9 +372,14 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
     device and emits a ``chunk`` event (wall time, steps/s, cumulative
     and per-chunk counters), plus ``checkpoint`` and ``health`` events;
     the steps themselves are untouched, so results are bitwise the same
-    with telemetry on or off.  ``mesh`` (a rank of the multi-process
-    path) makes the health checks read the counters summed over the
-    ranks."""
+    with telemetry on or off.  With the session's ``phases`` switch on
+    (read at each chunk's start) a chunk on a CUDA device is marked
+    (:mod:`repro_torch.obs.phases`): its ``chunk`` event gains
+    ``phases`` (each step phase's device-stream seconds summed over the
+    chunk, also observed as ``step.<name>``) and ``drain_s`` (the host's
+    wait in the boundary's drain, the marks resolved meanwhile), both
+    inside the chunk span.  ``mesh`` (a rank of the multi-process path)
+    makes the health checks read the counters summed over the ranks."""
     chunk_steps = int(chunk_steps) if chunk_steps else max(t_steps, 1)
     if chunk_steps <= 0:
         raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
@@ -375,16 +394,27 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
                 chunks.append(saved_records)
     prev = snapshot(start, carry, mesh) if health is not None else None
     prev_counters = carry_counters(carry) if tele is not None else None
+    device = _carries(carry)[0].counts.device
+    recorder = None     # one PhaseMarks a run, made at the first marked chunk
     s = start
     while s < t_steps:
         k = min(chunk_steps, t_steps - s)
         if host_hook is not None:
             host_hook(s, s + k)
+        marks = None
+        if tele is not None and tele.phases:
+            marks = recorder = recorder or PhaseMarks.for_device(device)
+        marked: dict = {}
         with obs.span("chunk", step=s) as sp:
-            carry, rec = run_chunk(carry, s, k)
-            if tele is not None:
-                # an honest per-chunk wall time needs the device drained
-                _sync(carry)
+            if marks is None:
+                carry, rec = run_chunk(carry, s, k)
+                if tele is not None:
+                    # an honest per-chunk wall time needs the device drained
+                    _sync(device)
+            else:
+                with marks:
+                    carry, rec = run_chunk(carry, s, k)
+                marked = _drain_marked(device, marks, tele.metrics)
         chunks.append(rec)
         if tele is not None:
             counters = carry_counters(carry)
@@ -394,7 +424,7 @@ def run_chunked(run_chunk: Callable[[Any, int, int], tuple],
             tele.emit("chunk", step=s + k, steps=k,
                       wall_s=round(wall, 6),
                       steps_per_s=round(k / wall, 3),
-                      counters=counters, delta=delta)
+                      counters=counters, delta=delta, **marked)
             prev_counters = counters
         if health is not None:
             now = snapshot(s + k, carry, mesh)

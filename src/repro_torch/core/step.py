@@ -24,6 +24,11 @@ vmaps its step over a trial axis, and here that axis is written out as
 the leading axis of every per-lane leaf of the carry (:class:`SimCarry`).
 Every op of the step runs once over all B lanes; the synaptic state and
 the stimulus are shared.  A single run is the batch of one lane.
+
+The two halves mark where each phase of the step starts
+(:mod:`repro_torch.obs.phases`: ``keys``, ``exchange``, ``stimulus``,
+``deliver``, ``finish``, ``probes``) when the chunk in flight is marked;
+otherwise each half makes one check and marks nothing.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import random as prng
+from repro_torch.obs import phases
 
 from .exchange.base import ExchangeScheme, Topology, all_gather
 from .health import health_step_stats
@@ -75,7 +81,12 @@ def step_exchange(carry: SimCarry, t: int, *, scheme: ExchangeScheme, state,
     wrapper, which sabotages payloads at configured steps) is called
     through it; the others keep the t-free ``exchange``."""
     from repro_torch.exp.stimulus import n_split
+    marks = phases.current()
+    if marks is not None:
+        marks("keys")
     keys = prng.split(carry.key, n_split(stim), partitionable=partitionable)
+    if marks is not None:
+        marks("exchange")
     delayed = carry.ring[carry.ptr]
     ex_at = getattr(scheme, "exchange_at", None)
     sent, kept = (scheme.exchange(state, delayed, cap, topo) if ex_at is None
@@ -94,9 +105,14 @@ def step_finish(carry: SimCarry, ex: Exchanged, gathered: torch.Tensor,
     silent."""
     from repro_torch.exp.stimulus import apply_drive
     p = sim.params
+    marks = phases.current()
+    if marks is not None:
+        marks("stimulus")
     payload = (gathered, ex.kept)
     sstate, drive = stim.step(carry.stim, ex.keys[..., 1:, :], t,
                               topo.part_size, p, partitionable=partitionable)
+    if marks is not None:
+        marks("deliver")
     if _scheme_fuses_lif(scheme, sim):
         lif, spikes, drop, stats = scheme.deliver_fused(
             state, payload, ex.delayed, carry.lif, drive, sim, cap, topo)
@@ -105,6 +121,8 @@ def step_finish(carry: SimCarry, ex: Exchanged, gathered: torch.Tensor,
                                               cap, topo)
         lif, spikes = apply_drive(carry.lif, g_units, drive, p,
                                   sim.fixed_point)
+    if marks is not None:
+        marks("finish")
     if pad_mask is not None:
         spikes = spikes & pad_mask
 
@@ -117,6 +135,8 @@ def step_finish(carry: SimCarry, ex: Exchanged, gathered: torch.Tensor,
         key=ex.keys[..., 0, :], counts=carry.counts + spikes.to(torch.int32),
         dropped=carry.dropped + drop.to(torch.int32), stim=sstate,
         stats={k: carry.stats[k] + stats[k] for k in carry.stats})
+    if marks is not None:
+        marks("probes")
     return new, probes.collect(spikes=spikes, lif=lif, drop=drop, params=p,
                                voltage_rows=voltage_rows)
 

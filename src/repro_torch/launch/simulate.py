@@ -34,7 +34,11 @@ exchange scheme (bitmap | event | blocked).  The supervision flags
 --telemetry streams the JSONL events of :mod:`repro_torch.obs` (check
 them with ``python -m repro_torch.obs.check`` and summarize them with
 ``python -m repro_torch.obs.report``); --profile writes a
-``torch.profiler`` trace into a directory.
+``torch.profiler`` trace into a directory.  Either opens a telemetry
+session with the step-phase switch on (:mod:`repro_torch.obs.phases`): on
+a card each chunk's steps are marked on the device stream, the chunk
+events carry each phase's time, a ``[simulate] step phases`` line sums
+them, and the profiler trace names the program's spans and phases.
 
 :func:`main` takes an argument list, so tests and ``chip_smoke.py`` can
 drive the CLI in process; its keyword ``async_checkpoint`` (no flag, as
@@ -122,10 +126,13 @@ def parser() -> argparse.ArgumentParser:
                          "raster probe; the kill-and-resume check)")
     ap.add_argument("--telemetry", default=None, metavar="PATH",
                     help="stream JSONL telemetry events to PATH (inspect "
-                         "with python -m repro_torch.obs.report PATH)")
+                         "with python -m repro_torch.obs.report PATH); "
+                         "on a card the steps' phases are timed on the "
+                         "device stream")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="wrap the run in torch.profiler and write "
-                         "DIR/trace.json (a Chrome trace)")
+                         "DIR/trace.json (a Chrome trace), the program's "
+                         "spans and step phases named in it")
     ap.add_argument("--device", default="cuda",
                     help="device of the run (default cuda, which needs a "
                          "card; cpu runs the kernels' plain versions)")
@@ -173,17 +180,35 @@ def main(argv=None, *, async_checkpoint: bool = False) -> None:
             if not lead:
                 # only rank 0 prints, streams telemetry and writes a profile
                 stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
-            if args.telemetry and lead:
-                stack.enter_context(obs.telemetry(args.telemetry))
+            session = None
+            if (args.telemetry or args.profile) and lead:
+                session = stack.enter_context(obs.telemetry(args.telemetry))
+                session.phases = True
             stack.enter_context(obs.profile_trace(args.profile if lead
                                                   else None))
             _run(args, supervised, device, async_checkpoint, mesh)
+            if session is not None:
+                _print_phases(session)
     finally:
         if owned:
             torch.distributed.destroy_process_group()
     if args.telemetry and lead:
         print(f"[simulate] telemetry stream: {args.telemetry} "
               f"(python -m repro_torch.obs.report {args.telemetry})")
+
+
+def _print_phases(session) -> None:
+    """The run's step phases (the session's ``step.<name>``
+    observations): device-stream seconds and shares.  Nothing where no
+    chunk was marked (a run on the CPU)."""
+    totals = {k.removeprefix("step."): v["total"]
+              for k, v in session.metrics.observations().items()
+              if k.startswith("step.")}
+    whole = sum(totals.values())
+    if whole > 0:
+        print("[simulate] step phases (device stream): " + ", ".join(
+            f"{k} {v:.4f}s ({100 * v / whole:.1f}%)"
+            for k, v in sorted(totals.items(), key=lambda kv: -kv[1])))
 
 
 def _fmt_stats(stats: dict) -> str:

@@ -11,7 +11,20 @@ bitwise the same with telemetry on or off.
   :class:`MetricsRegistry`.
 * :class:`span`: nested, thread-safe, monotonic-clock tracing spans
   wired through ``simulate``, ``simulate_distributed``, the chunk loop
-  and the host-side builds.
+  and the host-side builds; each ``span`` event carries its start on
+  the session clock and its parent span's name.
+* Step phases (:mod:`repro_torch.obs.phases`): a session's ``phases``
+  switch, off by default (``session.phases = True``, also on the live
+  session).
+  When it is on, each chunk of a run on a CUDA device is marked on the
+  device stream at every phase of the step (``entry``, ``keys``,
+  ``exchange``, ``stimulus``, ``deliver``, ``finish``, ``probes``); its
+  ``chunk`` event gains ``phases`` (seconds a phase over the chunk) and
+  ``drain_s`` (the host's wait at the boundary), the registry
+  ``step.<name>``, and every span and phase is also a
+  ``torch.profiler.record_function`` range.  When it is off nothing of
+  this runs: no event, no range, no device op.  The simulation CLI's
+  ``--telemetry PATH`` and ``--profile DIR`` turn it on.
 * :class:`InstrumentedCall`: per-signature compile-cache counters around
   the step loops (``stats["compile_cache"]``).
 * :class:`JsonlSink`: streamed events, validated by ``schema.json``

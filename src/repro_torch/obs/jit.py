@@ -39,9 +39,10 @@ def signature(x):
 
 class InstrumentedCall:
     """Wrap ``fn`` so that calls count compile-cache hits and misses
-    (``compile_cache.hits`` / ``.misses`` and per-function counters),
-    keyed by :func:`signature` of the arguments, with the arguments at
-    ``static_argnums`` keyed by value (as jit's static arguments are).
+    (``compile_cache.hits`` / ``.misses``; the per-signature records name
+    the function), keyed by :func:`signature` of the arguments, with the
+    arguments at ``static_argnums`` keyed by value (as jit's static
+    arguments are).
 
     ``registry`` binds always-on accounting (the serving engine's);
     without one the ambient telemetry session's registry is used, and
@@ -67,11 +68,9 @@ class InstrumentedCall:
                     for i, a in enumerate(args))
         if key in self._seen:
             reg.inc("compile_cache.hits")
-            reg.inc(f"compile_cache.{self.name}.hits")
         else:
             self._seen.add(key)
             reg.inc("compile_cache.misses")
-            reg.inc(f"compile_cache.{self.name}.misses")
             sig = hashlib.sha256(repr(key).encode()).hexdigest()[:12]
             reg.record_compile(self.name, sig, 0.0, 0.0, None, None)
             if tele is not None:

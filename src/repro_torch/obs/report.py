@@ -8,6 +8,9 @@ schema accepts (live tail of a running simulation or a finished run):
 * the run header (kind, engine/scheme, n, steps, total wall);
 * a phase table from the ``span`` events — where wall-clock went;
 * chunk throughput (overall steps/sec, per-chunk min/median/max);
+* a step-phase table from the chunks' ``phases`` fields (device-stream
+  time of each phase a step, :mod:`repro_torch.obs.phases`), and the
+  host's enqueue and drain time a step, when the run was marked;
 * the final cumulative counters (spikes, drops, health sentinels,
   tile-skip stats — whatever the carry carried);
 * the compile-cache table (per-signature records and hit/miss totals;
@@ -16,7 +19,8 @@ schema accepts (live tail of a running simulation or a finished run):
 * resilience events (health breaches, checkpoints, restarts,
   escalations), when any occurred;
 * serving traffic (``serve_*`` events): terminal-status counts,
-  completed-request latency p50/p99, shed/retry/quarantine incidents.
+  admissions and batches (mean lanes a batch), completed-request
+  latency p50/p99, shed/retry/quarantine incidents.
 
 Everything is plain text, zero dependencies; exit code 1 when the
 stream contains no events.
@@ -58,6 +62,31 @@ def _median(xs: list[float]) -> float:
     xs = sorted(xs)
     m = len(xs) // 2
     return xs[m] if len(xs) % 2 else 0.5 * (xs[m - 1] + xs[m])
+
+
+def _phase_table(chunks: list[dict]) -> list[str]:
+    """Step phases summed over the marked chunks: seconds, ms a step and
+    share of the marked stream time; then the host's time a step to enqueue
+    the steps (the chunk's wall time less its drain) and in the drain."""
+    marked = [c for c in chunks if c.get("phases")]
+    if not marked:
+        return []
+    steps = sum(c["steps"] for c in marked)
+    totals: dict[str, float] = {}
+    for c in marked:
+        for name, sec in c["phases"].items():
+            totals[name] = totals.get(name, 0.0) + sec
+    whole = sum(totals.values()) or 1.0
+    rows = [[name, f"{sec:.3f}s", f"{1e3 * sec / steps:.4f}",
+             f"{100 * sec / whole:.1f}%"]
+            for name, sec in sorted(totals.items(), key=lambda kv: -kv[1])]
+    wall = sum(c["wall_s"] for c in marked)
+    drain = sum(c.get("drain_s", 0.0) for c in marked)
+    return ["", f"step phases (device stream, {steps} steps over "
+            f"{len(marked)} marked chunk(s)):",
+            _table(rows, ["phase", "total", "ms/step", "share"]),
+            f"host: enqueue {1e3 * (wall - drain) / steps:.4f} ms/step, "
+            f"drain {1e3 * drain / steps:.4f} ms/step"]
 
 
 def summarize(events: list[dict]) -> str:
@@ -112,6 +141,7 @@ def summarize(events: list[dict]) -> str:
         if final:
             out.append("counters (cumulative at last chunk): " + "  ".join(
                 f"{k}={v}" for k, v in sorted(final.items())))
+        out.extend(_phase_table(chunks))
     elif ends and ends[-1].get("counters"):
         out.append("counters: " + "  ".join(
             f"{k}={v}" for k, v in sorted(ends[-1]["counters"].items())))
@@ -147,6 +177,11 @@ def summarize(events: list[dict]) -> str:
             statuses[e["status"]] = statuses.get(e["status"], 0) + 1
         out.append("serving: " + "  ".join(
             f"{k}={v}" for k, v in sorted(statuses.items())))
+        batches = [e["size"] for e in _by_type(events, "serve_batch")]
+        out.append(f"admitted {len(_by_type(events, 'serve_admit'))}, "
+                   f"{len(batches)} batch(es)"
+                   + (f", mean {sum(batches) / len(batches):.2f} lanes"
+                      if batches else ""))
         lat = sorted(e["wall_s"] for e in req_ends
                      if e["status"] == "completed")
         if lat:

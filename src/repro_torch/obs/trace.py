@@ -8,12 +8,18 @@ asks :func:`active` once and does nothing when there is no session: the
 layer then costs two attribute checks and touches no device.
 
 :class:`span` is the phase-tracing primitive: monotonic host clock,
-nesting (per-thread depth stacks), and on exit one ``span`` event plus a
-``phase.<name>`` observation in the registry.  A span reads the host
-clock only; it does not wait for the device.  The chunk loop
-(:func:`repro_torch.core.health.run_chunked`) synchronizes the device
-at each chunk boundary when a session is active, so chunk spans carry
-the device time of their steps.
+nesting (per-thread stacks), and on exit one ``span`` event with its
+start on the session clock and the name of the span that encloses it.  A
+span reads the host clock only; it does not wait for the device.  The
+chunk loop (:func:`repro_torch.core.health.run_chunked`) synchronizes the
+device at each chunk boundary when a session is active, so chunk spans
+carry the device time of their steps.
+
+A session's ``phases`` switch (off by default, settable on the live
+session) turns on the step-phase marks of :mod:`repro_torch.obs.phases`,
+and while it is on every span also opens a
+``torch.profiler.record_function`` range of its name, so profiler traces
+carry the program's spans and phases on the profiler's own clock.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from contextvars import ContextVar
 from threading import local
 from typing import Optional
 
+import torch
+
 from .events import _jsonable, coerce_sink
 from .metrics import MetricsRegistry
 
@@ -32,12 +40,16 @@ _ACTIVE: ContextVar[Optional["Telemetry"]] = ContextVar(
 
 
 class Telemetry:
-    """One telemetry session: sink + metrics + session-relative clock."""
+    """One telemetry session: sink + metrics + session-relative clock.
+    ``phases`` is the step-phase switch (:mod:`repro_torch.obs.phases`),
+    off until set on the session; the chunk loop reads it at each chunk's
+    start."""
 
     def __init__(self, sink=None, validate: bool = False):
         self.sink = coerce_sink(sink)
         self.metrics = MetricsRegistry()
         self.validate = validate
+        self.phases = False
         self._t0 = time.monotonic()
         self._tls = local()    # per-thread span stacks
 
@@ -99,12 +111,15 @@ def telemetry(sink=None, *, validate: bool = False):
 class span:
     """Tracing span: ``with span("build", what="synapses"): ...``.
 
-    No-op (no clock read) without an active session.  On exit:
-    ``wall_s`` is set on the span object, a ``span`` event is emitted,
-    and ``phase.<name>`` is observed in the registry.
+    No-op (no clock read) without an active session.  On exit
+    ``wall_s`` is set on the span object and a ``span`` event is emitted:
+    ``start`` (session clock), ``wall_s``, ``depth`` and ``parent`` (the
+    enclosing span's name, None at the top).  With the session's
+    ``phases`` switch on the span is also a profiler range of its name.
     """
 
-    __slots__ = ("name", "attrs", "wall_s", "_session", "_start", "_depth")
+    __slots__ = ("name", "attrs", "wall_s", "_session", "_start", "_depth",
+                 "_parent", "_range")
 
     def __init__(self, name: str, **attrs):
         self.name = name
@@ -118,7 +133,12 @@ class span:
             self._session = s
             stack = s._stack()
             self._depth = len(stack)
+            self._parent = stack[-1] if stack else None
             stack.append(self.name)
+            self._range = None
+            if s.phases:
+                self._range = torch.profiler.record_function(self.name)
+                self._range.__enter__()
             self._start = time.monotonic()
         return self
 
@@ -126,10 +146,13 @@ class span:
         s = self._session
         if s is not None:
             self.wall_s = time.monotonic() - self._start
+            if self._range is not None:
+                self._range.__exit__(exc_type, exc, tb)
             s._stack().pop()
-            s.metrics.observe(f"phase.{self.name}", self.wall_s)
-            fields = {"name": self.name, "wall_s": round(self.wall_s, 6),
-                      "depth": self._depth}
+            fields = {"name": self.name,
+                      "start": round(self._start - s._t0, 6),
+                      "wall_s": round(self.wall_s, 6),
+                      "depth": self._depth, "parent": self._parent}
             if self.attrs:
                 fields["attrs"] = self.attrs
             s.emit("span", **fields)

@@ -195,10 +195,12 @@ def test_no_session_records_nothing_and_sinks(tmp_path):
         calls(torch.ones(3))
         with pytest.raises(ValueError, match="invalid"):
             s.emit("chunk", step=1)
-    spans = [(e["name"], e["depth"]) for e in seen if e["type"] == "span"]
-    assert spans == [("inner", 1), ("outer", 0)]
+    spans = [(e["name"], e["depth"], e["parent"]) for e in seen
+             if e["type"] == "span"]
+    assert spans == [("inner", 1, "outer"), ("outer", 0, None)]
     assert s.metrics.compile_snapshot()["hits"] == 1
-    assert s.metrics.counters()["phase.outer.count"] == 1
+    assert s.metrics.counters() == {"compile_cache.hits": 1,
+                                    "compile_cache.misses": 2}
     sink = obs.JsonlSink(str(tmp_path / "s.jsonl"), async_flush=False)
     sink.emit({"t": np.float32(0.5), "type": "span",
                "n": torch.tensor(3)})
