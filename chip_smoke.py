@@ -157,6 +157,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 without tensor cores
 TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 BF16_FLOP_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
+THREEFRY_OPS = 70              # a threefry-2x32 block, and the rate of any
+OPS_PER_S = 66.9e12            # one operation, as portbench/yardstick.py
 N_FULL = 139_255
 SYN_FULL = 15_000_000
 N_KERNEL_CHECK = 20_000
@@ -429,7 +431,8 @@ def kernel_modules():
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.lif import kernel as LK
     from repro_torch.kernels.spike_prop import kernel as K
-    return K, LK, FK
+    from repro_torch.kernels.threefry import kernel as TFK
+    return K, LK, FK, TFK
 
 
 def reset_all_launches() -> None:
@@ -653,14 +656,15 @@ def run_engine(c, cfg, t_steps, stim, syn, probes, label):
     import torch
     from repro_torch.core import simulate
     from repro_torch.kernels.spike_prop import kernel as K
+    from repro_torch.kernels.threefry import kernel as TFK
     torch.cuda.synchronize()
-    K.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     res = simulate(c, cfg, t_steps, seed=0, syn=syn, stimulus=stim,
                    probes=probes)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / t_steps
-    launches = dict(K.LAUNCHES)
+    launches = {**K.LAUNCHES, **TFK.LAUNCHES}
     print(f"{label}: {ms:.4f} ms/step over {t_steps} steps, "
           f"{int(res.counts.sum())} spikes, launches {launches}", flush=True)
     return res, ms, launches
@@ -713,6 +717,13 @@ def phase_main(c, cfg, stim):
     check(launches["fused_deliver_lif"] == T_MAIN,
           f"fused kernel launched {launches['fused_deliver_lif']} times in "
           f"{T_MAIN} steps")
+    # each step splits the keys and draws the sugar drive: one threefry
+    # launch apiece
+    check(launches["threefry_split"] == T_MAIN
+          and launches["threefry_bernoulli"] == T_MAIN
+          and launches["threefry_bits"] == 0,
+          f"threefry launches {launches}, expected {T_MAIN} splits and "
+          f"{T_MAIN} draws")
     peak = torch.cuda.max_memory_allocated() / 1e9
     csr_cfg = dataclasses.replace(cfg, engine="csr")
     csr_syn = build_synapses(c, csr_cfg)
@@ -1630,6 +1641,81 @@ def phase_flash_check():
     print(f"flash kernel checks: {len(FLASH_CASES)} cases within "
           f"{FLASH_ATOL}; worst |err| {worst:.3e}", flush=True)
     return worst
+
+
+@phase("the threefry kernel at the step loop's shapes")
+def phase_threefry(smi):
+    """The threefry kernel at the shapes the step loop draws: the key
+    split of 32 and 1,024 lanes, storm's and sweep's background over
+    FlyWire's n on 32 lanes (p 0.02, 0.002), the sugar drive's 20 draws
+    on 1,024 and 32 lanes (p 0.015), and storm's background in threefry's
+    original mode.  The keys are the carry's strided view of the last
+    split, as the step passes them.  Each case bitwise the int64 chain
+    (``threefry/ref.py``) on the same keys, then the kernel's device time
+    (profiler), the chain's device time (profiler) and stream time (CUDA
+    events), against the larger of THREEFRY_OPS operations a block at
+    OPS_PER_S and the output's bytes at HBM_BYTES_PER_S.  No PyTorch call
+    computes threefry: ``library_ms`` is null."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.threefry import kernel as TFK
+    from repro_torch.kernels.threefry import ref as TFR
+    # label: (wrapper, lanes, num or draws a lane, p, partitionable)
+    cases = {"split_b32": ("threefry_split", 32, 3, None, True),
+             "split_b1024": ("threefry_split", 1024, 3, None, True),
+             "storm": ("threefry_bernoulli", 32, N_FULL, 0.02, True),
+             "sweep": ("threefry_bernoulli", 32, N_FULL, 0.002, True),
+             "sugar_b1024": ("threefry_bernoulli", 1024, 20, 0.015, True),
+             "sugar_b32": ("threefry_bernoulli", 32, 20, 0.015, True),
+             "storm_original": ("threefry_bernoulli", 32, N_FULL, 0.02,
+                                False)}
+    out = {}
+    for i, (label, (name, lanes, size, p, mode)) in enumerate(cases.items()):
+        words = np.random.default_rng(i).integers(0, 2**32, (lanes, 2))
+        carry = TFR.split_ref(torch.from_numpy(words.astype(np.int64)).to(
+            DEVICE), 3, mode)
+        key = carry[..., 0, :]
+        check(not key.is_contiguous(), f"{label}: the key is not strided")
+        if name == "threefry_split":
+            kern = lambda: TFK.threefry_split(key, size, mode)  # noqa: E731
+            plain = lambda: TFR.split_ref(key, size, mode)  # noqa: E731
+        else:
+            pf = float(np.float32(p))
+            kern = lambda: TFK.threefry_bernoulli(  # noqa: E731
+                key, pf, size, mode)
+            plain = lambda: TFR.bernoulli_ref(  # noqa: E731
+                key, pf, size, mode)
+        TFK.reset_launches()
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check(TFK.LAUNCHES[name] == 1, f"{label}: {TFK.LAUNCHES}")
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"{label}: {name} != the int64 chain")
+        match = ("original" if not mode else "partitionable_words"
+                 if name == "threefry_split" else "partitionable_draws")
+        ms = kernel_device_ms(kern, 200, match)
+        _, chain = device_profile(plain, 20)
+        plain_ms = None if chain is None else sum(v for v, _ in
+                                                  chain.values())
+        plain_stream_ms = cuda_ms(plain, 20)
+        t_ops = lanes * size * THREEFRY_OPS / OPS_PER_S * 1e3
+        t_bytes = got.numel() * got.element_size() / HBM_BYTES_PER_S * 1e3
+        out[label] = {
+            "wrapper": name, "shape": [lanes, size], "p": p,
+            "partitionable": mode, "ms": ms, "plain_ms": plain_ms,
+            "plain_stream_ms": plain_stream_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+        print(f"{label}: {name} [{lanes}, {size}] p {p} "
+              f"{'partitionable' if mode else 'original'}: kernel "
+              f"{ms:.5f} ms/launch, chain {plain_ms} ms device "
+              f"({plain_stream_ms:.5f} ms stream), bound "
+              f"{max(t_ops, t_bytes):.7f} ms ({out[label]['bound_by']}); "
+              f"bitwise the chain; card {smi}", flush=True)
+        del carry, key, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 @phase("LIF entry points, 1,000 steps at n = 139,255")
@@ -2732,14 +2818,15 @@ def dist_run(d, sim, scheme, t_steps, stim, probes, label):
     import torch
     from repro_torch.core import DistConfig, simulate_distributed
     from repro_torch.kernels.spike_prop import kernel as K
+    from repro_torch.kernels.threefry import kernel as TFK
     torch.cuda.synchronize()
-    K.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     res = simulate_distributed(d, DistConfig(sim=sim, scheme=scheme),
                                t_steps, seed=0, stimulus=stim, probes=probes)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / t_steps
-    launches = dict(K.LAUNCHES)
+    launches = {**K.LAUNCHES, **TFK.LAUNCHES}
     stats = {k: int(v) for k, v in res.stats.items()}
     print(f"{label}: {ms:.4f} ms/step over {t_steps} steps at P = "
           f"{d.n_parts}, {int(res.counts.sum())} spikes, dropped "
@@ -3141,6 +3228,14 @@ def phase_distributed(c, stim, smi):
           and runs["blocked_fused"][2]["spike_deliver"] == 0,
           f"sharded launches {launches}, expected {want} of each kernel "
           f"in its own run only")
+    # the threefry kernel on the partitioned path: the [P, ...] key split
+    # and each partition's sugar draws, whose [P, U] mask is one & after
+    # the launch
+    for name in ("threefry_split", "threefry_bernoulli"):
+        launches[name] = runs["blocked_fused"][2][name]
+    check(launches["threefry_split"] > 0
+          and launches["threefry_bernoulli"] > 0,
+          f"the threefry kernel never launched at P = {P_DIST}: {launches}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(peak < 80.0, f"peak device memory {peak:.3f} GB")
     ms = {label: r[1] for label, r in runs.items()}
@@ -4684,7 +4779,9 @@ def flywire_section(smi):
     yard, activity = phase_yardstick(c, cfg, syn, fused, smi)
     activity += storm_rows
     launches = {"spike_deliver": other_launches["spike_deliver"],
-                "fused_deliver_lif": main_launches["fused_deliver_lif"]}
+                "fused_deliver_lif": main_launches["fused_deliver_lif"],
+                "threefry_split": main_launches["threefry_split"],
+                "threefry_bernoulli": main_launches["threefry_bernoulli"]}
     del fused
     trials, trial_launches = phase_trials(c, cfg, stim, syn, smi)
     lanes = phase_trials_yardstick(c, cfg, syn, trials, smi)
@@ -4745,6 +4842,7 @@ def main() -> int:
     check_err = phase_kernel_check()
     check_err.update(phase_lif_check())
     check_err["flash_attention"] = phase_flash_check()
+    threefry = phase_threefry(smi)
 
     (yard, activity, launches, sharded, sharded_launches, lanes,
      dist_trials_out, extra) = flywire_section(smi)
@@ -4764,7 +4862,7 @@ def main() -> int:
     flash_qwen, flash_cases = phase_flash_yardstick(smi)
     yard["flash_attention"] = (*flash_qwen, 0.0)
 
-    K, LK, FK = kernel_modules()
+    K, LK, FK, TFK = kernel_modules()
     rel = lambda p: os.path.relpath(p, here)  # noqa: E731
     sources = {**K.SOURCES, **LK.SOURCES, **FK.SOURCES}
     replaces = {
@@ -4849,6 +4947,21 @@ def main() -> int:
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": "operations", "library_ms": lib_ms,
                     "max_abs_err": err}
+    # kernel #6 stands in for no TPU kernel: it replaces the int64 chain
+    # that computed jax.random's threefry; one entry a wrapper the step
+    # loop launches, with the main path's launches (T_MAIN steps of
+    # blocked_fused), the P = 12 run's and every case of phase_threefry
+    for name, first in (("threefry_split", "split_b32"),
+                        ("threefry_bernoulli", "storm")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": rel(TFK.SOURCES[name]),
+            "replaces": "src/repro_torch/kernels/threefry/ref.py",
+            "launches": launches[name],
+            "sharded_p12_launches": sharded_launches[name],
+            "max_abs_err": 0.0, **threefry[first],
+            "held_against_plain": True,
+            "cases": {label: case for label, case in threefry.items()
+                      if case["wrapper"] == name}})
     check(len(family_launches) == len(LM_FAMILIES) + 1
           and all(n > 0 for name, n in family_launches.items()
                   if not name.startswith("rwkv6"))

@@ -23,6 +23,7 @@ port on a machine with no nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -143,6 +144,17 @@ def charge(kernel: str, flops: float, nbytes: float) -> None:
         COUNTERS[-1].charge(kernel, flops, nbytes)
 
 
+@contextlib.contextmanager
+def unseen():
+    """Run the body unseen by every active counter: its ops and storage
+    are not counted (a kernel's plain version standing in for a launch
+    that :func:`charge` counts)."""
+    with contextlib.ExitStack() as stack:
+        for c in COUNTERS:
+            stack.enter_context(c.unseen())
+        yield
+
+
 def check_tensor(name: str, x, dtype, shape, device) -> None:
     """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: what a kernel's pointer arithmetic assumes."""
@@ -157,4 +169,4 @@ def check_tensor(name: str, x, dtype, shape, device) -> None:
 
 __all__ = ["BUILD_DIR", "COUNTERS", "INCLUDE_DIR", "NVCC_FLAGS", "build",
            "charge", "check_tensor", "function", "library_path", "load",
-           "nvcc_path", "raise_on", "stream"]
+           "nvcc_path", "raise_on", "stream", "unseen"]

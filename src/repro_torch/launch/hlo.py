@@ -135,6 +135,7 @@ class Counter(TorchDispatchMode):
         self.cost = StepCost()
         self.device_type = torch.device(device).type
         self._n = 1                 # the trips of the enclosing repeats
+        self._unseen = False        # inside unseen(): nothing is counted
         self.last_op = (0.0, 0)     # (flops, bytes) of the last op counted
         self._live = 0
         self._storages: dict[int, int] = {}
@@ -180,6 +181,17 @@ class Counter(TorchDispatchMode):
         finally:
             self._n = n
 
+    @contextlib.contextmanager
+    def unseen(self):
+        """Nothing made or run inside is counted: no ops, no bytes, no
+        storage (a kernel's plain version run in its place, whose
+        temporaries the kernel never makes; the kernel charges itself)."""
+        was, self._unseen = self._unseen, True
+        try:
+            yield
+        finally:
+            self._unseen = was
+
     def hold(self, nbytes: int) -> None:
         """Count ``nbytes`` more (or, negative, fewer) as live."""
         self._live += nbytes
@@ -214,6 +226,8 @@ class Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._unseen:
+            return func(*args, **kwargs)
         # under inference_mode composite ops (matmul) reach the mode whole:
         # count the kernels they decompose into, as under no_grad
         with self:

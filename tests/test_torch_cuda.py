@@ -23,6 +23,8 @@ from repro_torch.kernels.lif import kernel as LK
 from repro_torch.kernels.lif import lif_update
 from repro_torch.kernels.spike_prop import kernel as K
 from repro_torch.kernels.spike_prop import ops
+from repro_torch.kernels.threefry import kernel as TFK
+from repro_torch.kernels.threefry import ref as TFR
 
 ACTIVITY = {"silent": 0.0, "sparse": 0.02, "dense": 0.3, "all": 1.0}
 CHANNELS = [(g, v, f) for g in (0, 1) for v in (0, 1) for f in (0, 1)]
@@ -1149,3 +1151,126 @@ def test_counter_on_the_card_equals_the_meta_count(cuda):
     assert launched == cfg.n_layers
     assert (card.flops, card.bytes, card.launches, card.peak_bytes) == \
         (meta.flops, meta.bytes, meta.launches, meta.peak_bytes)
+
+
+# ---------------------------------------------------------------------------
+# the threefry kernel
+# ---------------------------------------------------------------------------
+
+THREEFRY_LEADS = [(), (3,), (4, 3), (32,), (1024,)]
+THREEFRY_SIZES = (1, 7, 20, 1000, 139_255)
+THREEFRY_PS = (0.0, 0.0015, 0.02, 0.5, 1.0)
+
+
+def _threefry_keys(lead, dev, seed=0):
+    words = np.random.default_rng(seed).integers(0, 2**32, lead + (2,))
+    return torch.from_numpy(words.astype(np.int64)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [True, False],
+                         ids=["partitionable", "original"])
+@pytest.mark.parametrize("lead", THREEFRY_LEADS, ids=str)
+def test_threefry_split_matches_plain(cuda, mode, lead):
+    """split for num 1..16, bitwise the int64 chain on the card, one
+    launch a call; a strided key (the carry's view of the last split)
+    splits as its copy does."""
+    from repro_torch import random as prng
+    k = _threefry_keys(lead, cuda)
+    TFK.reset_launches()
+    for num in range(1, 17):
+        got = prng.split(k, num, partitionable=mode)
+        assert got.shape == lead + (num, 2)
+        assert torch.equal(got, TFR.split_ref(k, num, mode)), num
+    view = prng.split(k, 3, partitionable=mode)[..., 0, :]
+    assert torch.equal(prng.split(view, 3, partitionable=mode),
+                       TFR.split_ref(view.contiguous(), 3, mode))
+    torch.cuda.synchronize()
+    assert TFK.LAUNCHES == {"threefry_split": 18, "threefry_bits": 0,
+                            "threefry_bernoulli": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [True, False],
+                         ids=["partitionable", "original"])
+@pytest.mark.parametrize("lead", THREEFRY_LEADS, ids=str)
+def test_threefry_draws_match_plain(cuda, mode, lead):
+    """random_bits, uniform and bernoulli (every p, and poisson_drive
+    with a shared mask) over odd and even sizes up to FlyWire's n, bitwise
+    the int64 chain on the card."""
+    from repro_torch import random as prng
+    from repro_torch.core.neuron import poisson_drive
+    k = _threefry_keys(lead, cuda, seed=len(lead))
+    rng = np.random.default_rng(1)
+    TFK.reset_launches()
+    for size in THREEFRY_SIZES:
+        bits = TFR.random_bits_ref(k, size, mode)
+        assert torch.equal(prng.random_bits(k, (size,), partitionable=mode),
+                           bits), size
+        u = TFR.uniform_from_bits(bits)
+        assert torch.equal(prng.uniform(k, (size,), partitionable=mode), u)
+        mask = torch.from_numpy(rng.random(size) < 0.6).to(cuda)
+        for p in THREEFRY_PS:
+            want = u < float(np.float32(p))
+            got = prng.bernoulli(k, p, (size,), partitionable=mode)
+            assert torch.equal(got, want), (size, p)
+            # poisson_drive's p is rate * dt * 1e-3: the same float here
+            got = poisson_drive(k, size, p * 1e3, 1.0, mask,
+                                partitionable=mode)
+            want = u < float(np.float32(p * 1e3 * 1.0 * 1e-3))
+            assert torch.equal(got, want & mask), (size, p, "mask")
+        del bits, u
+    torch.cuda.synchronize()
+    n = len(THREEFRY_SIZES)
+    assert TFK.LAUNCHES == {"threefry_split": 0, "threefry_bits": 2 * n,
+                            "threefry_bernoulli": 2 * n * len(THREEFRY_PS)}
+
+
+@pytest.mark.cuda
+def test_threefry_counted_on_the_card_as_on_meta(cuda):
+    """Under hlo.count a draw on the card charges what it charges on
+    meta: one launch, the same bytes."""
+    from repro_torch import random as prng
+    from repro_torch.launch import hlo
+    costs = {}
+    for dev in ("meta", cuda):
+        k = torch.zeros((32, 2), dtype=torch.int64, device=dev)
+        with hlo.count(dev, resident=(k,)) as c:
+            prng.bernoulli(k, 0.02, (139_255,))
+            prng.split(k, 3)
+        costs[torch.device(dev).type] = c.cost
+    meta, card = costs["meta"], costs["cuda"]
+    assert card.kernels == meta.kernels == {"threefry_bernoulli": 1,
+                                            "threefry_split": 1}
+    assert (card.flops, card.bytes, card.launches, card.peak_bytes) == \
+        (meta.flops, meta.bytes, meta.launches, meta.peak_bytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario,draws", [("background_storm", 2),
+                                            ("sugar_feeding", 1)])
+def test_threefry_kernel_drives_run_trials(cuda, scenario, draws):
+    """20 steps of run_trials on 4 lanes: each step splits the keys and
+    draws each stimulus part in one launch apiece (storm: split, sugar,
+    background; sugar: split, sugar), and counts and final state are the
+    CPU run's, whose draws are the int64 chain."""
+    from repro_torch.exp import run_trials
+    c = synthetic_flywire(n=1500, target_synapses=45_000, seed=3)
+    cfg = SimConfig(engine="blocked_fused", fixed_point=True,
+                    quantize_bits=9, poisson_to_v=False)
+    T, seeds = 20, (0, 1, 2, 3)
+
+    def run(dev):
+        TFK.reset_launches()
+        return run_trials(c, cfg, T, seeds=seeds, device=dev,
+                          stimulus=build_scenario(scenario, c, cfg))
+    cpu = run("cpu")
+    assert TFK.LAUNCHES == dict.fromkeys(TFK.SOURCES, 0)
+    assert int(cpu.counts.sum()) > 0
+    r = run(cuda)
+    torch.cuda.synchronize()
+    assert TFK.LAUNCHES == {"threefry_split": T, "threefry_bits": 0,
+                            "threefry_bernoulli": draws * T}
+    assert torch.equal(r.counts.cpu(), cpu.counts)
+    assert torch.equal(r.dropped.cpu(), cpu.dropped)
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(r.state, cpu.state))
