@@ -5,13 +5,14 @@ size (on the card; not part of a benchmark run).
         --program-seeds 11 12 13 14 15 16 --control-seeds 11 12 13
 
 For each program seed, one experiment of the cell's T steps through the
-timed path (``run_trials`` on the cell's lanes, chunked and supervised as
-the window runs it) is held against the plain reference: the numbers of
-``portbench/check.py`` for sound runs, the lower readings.  For each
-control seed, the reference computed in the nearest precision below the
-configuration's (``control=True``: bfloat16 for float32, Q23.8 for
-Q19.12) is put in the program's place and held against the reference: the
-upper readings.  Prints one JSON line per seed and a summary line.
+timed path (the family's program on the cell's lanes, chunked as the
+window runs it) is held against the family's plain reference: the
+numbers of ``portbench/check.py`` for sound runs, the lower readings.
+For each control seed, the reference computed in the nearest precision
+below the configuration's (``control=True``; for the FlyWire LIF family
+bfloat16 for float32, Q23.8 for Q19.12) is put in the program's place
+and held against the reference: the upper readings.  Prints one JSON line
+per seed and a summary line.
 """
 
 import os
@@ -30,19 +31,16 @@ def readings(root: str, cell: str, program_seeds, control_seeds, device,
              log=print) -> dict:
     import torch
 
-    from portbench import check, harness, network, spec
-    from portbench.reference import sim as reference
-    from repro_torch import obs
-    from repro_torch.core import Connectome, build_synapses
-    from repro_torch.exp import trials
+    from portbench import check, spec
 
     bench = spec.benchmark(root)
     wl = spec.workload(bench, cell)
     conf = spec.config(root, wl["config"])
+    fam = spec.family(root, conf)
     traf = spec.traffic(root, wl["traffic"])
     B, T, K = traf["lanes"], traf["t_steps"], traf["chunk_steps"]
-    net = network.load_network(conf["network"],
-                               os.path.join(root, "build", "portbench"))
+    net = fam.network(conf["network"],
+                      os.path.join(root, "build", "portbench"))
     exact: dict = {}
 
     def lanes(seed):
@@ -50,32 +48,25 @@ def readings(root: str, cell: str, program_seeds, control_seeds, device,
 
     def ref(seed, control=False):
         seeds = spec.lane_seeds(seed, B)
-        return reference.simulate(net, conf["model"], traf["drive"],
-                                  [seeds[i] for i in lanes(seed)], T, device,
-                                  control=control)
+        return fam.reference(net, conf, traf,
+                             [seeds[i] for i in lanes(seed)], T, device,
+                             control=control)
 
     out = {"cell": cell, "program": {}, "control": {}}
     if program_seeds:
-        c = Connectome(n=net["n"], **{k: net[k] for k in network.ARRAYS})
-        cfg = harness.program_config(conf)
-        syn = build_synapses(c, cfg, device)
-        stim = harness.program_stimulus(traf, c.n).to(device)
+        program = fam.program(conf, traf, net, device)
         for s in program_seeds:
             t0 = time.perf_counter()
-            with obs.telemetry(obs.CallbackSink(lambda rec: None)):
-                res = trials.run_trials(c, cfg, T, seeds=spec.lane_seeds(s, B),
-                                        syn=syn, stimulus=stim,
-                                        chunk_steps=K, device=device)
+            res = program(T, spec.lane_seeds(s, B), K, lambda rec: None)
             t1 = time.perf_counter()
             exact[s] = ref(s)
-            nums, _ = check.compare(
-                [(res.counts, res.dropped, *res.state)], exact[s], lanes(s))
+            nums, _ = check.compare([res], exact[s], fam.STATE, lanes(s))
             out["program"][s] = nums
             log(json.dumps({"seed": s, "side": "program", **nums,
-                            "spikes": int(res.counts.sum()),
+                            "spikes": int(res[0].sum()),
                             "program_s": t1 - t0,
                             "reference_s": time.perf_counter() - t1}))
-        del syn, stim, c, res
+        del program, res
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
     for s in control_seeds:
@@ -83,8 +74,8 @@ def readings(root: str, cell: str, program_seeds, control_seeds, device,
         if s not in exact:
             exact[s] = ref(s)
         ctl = ref(s, control=True)
-        nums, _ = check.compare([(ctl.counts, ctl.dropped, ctl.v, ctl.g,
-                                  ctl.refrac)], exact[s])
+        nums, _ = check.compare([(ctl.counts, ctl.dropped, ctl.state)],
+                                exact[s], fam.STATE)
         out["control"][s] = nums
         log(json.dumps({"seed": s, "side": "control", **nums,
                         "spikes": int(ctl.counts.sum()),

@@ -1,25 +1,27 @@
 """One run of one cell: set-up, the measured window, the comparison with
 the plain reference, and the result line.
 
-The window drives ``repro_torch.exp.trials.run_trials`` (the trial-batched
-path behind the simulation CLI's ``--trials`` and ``--chunk-steps``) inside
-a telemetry session whose sink is the harness's callback, so the program
-drains the device at every chunk boundary and emits a ``chunk`` event: a
-closed loop that reads the network every K steps.  Experiments of T
-steps run back to back, each a fresh ``run_trials`` call on the lanes'
-seeds, until the window's seconds are spent; each chunk is timed on
-arrival.  The experiment running when the window closes is stopped at
-its next boundary (a callback that raises), unless no experiment has
-completed yet: then it runs to its end, its late chunks not counted, so
-that every run has an answer to compare.
+The cell's configuration names its model family
+(``portbench/families/<family>.py``), which builds the network, sets the
+program up and hands the harness one call: an experiment of T steps over
+the lanes' seeds, chunked every K steps, each chunk announced to the
+harness's callback as the program's ``chunk`` event once the program has
+drained the device (for the FlyWire LIF family: the trial-batched
+``repro_torch.exp.trials.run_trials``, in a telemetry session).  That is
+a closed loop that reads the network every K steps.  Experiments run back
+to back, each on the lanes' seeds, until the window's seconds are spent;
+each chunk is timed on arrival.  The experiment running when the window
+closes is stopped at its next boundary (a callback that raises), unless
+no experiment has completed yet: then it runs to its end, its late
+chunks not counted, so that every run has an answer to compare.
 
 With ``trace`` the first experiment's middle chunks (``PROFILE_CHUNKS``
 of them, from step T/2) run under ``torch.profiler`` recording the
 device alone, started and stopped at their boundaries, and the
 per-layer metrics are read from that stretch, the chunk timings and the
-reference's per-step counts.  The ``NAMING_CHUNKS`` after it run with
-the host's operations recorded too, which slows the host, only to name
-the idle gaps of the breakdown.
+family's least-work count of the reference's per-step counts.  The
+``NAMING_CHUNKS`` after it run with the host's operations recorded too,
+which slows the host, only to name the idle gaps of the breakdown.
 """
 
 from __future__ import annotations
@@ -33,8 +35,7 @@ import warnings
 import numpy as np
 import torch
 
-from portbench import check, devtrace, network, spec, yardstick
-from portbench.reference import sim as reference
+from portbench import check, devtrace, spec, yardstick
 
 FORBIDDEN = ("flax", "jax", "jaxlib", "repro")
 WARM_CHUNKS = 2
@@ -54,37 +55,6 @@ def forbidden_modules(names=None) -> list[str]:
     return sorted({m.split(".")[0] for m in names} & set(FORBIDDEN))
 
 
-def program_config(conf: dict):
-    """The program's ``SimConfig`` for a configuration file."""
-    from repro_torch.core import LIFParams, SimConfig
-    m = conf["model"]
-    params = LIFParams(**{k: m[k] for k in (
-        "tau_m", "tau_g", "tau_ref", "v0", "v_r", "v_th", "w_scale", "dt",
-        "delay")})
-    return SimConfig(params=params, engine=conf["engine"],
-                     fixed_point=m["fixed_point"],
-                     quantize_bits=m["weight_bits"], poisson_to_v=False)
-
-
-def program_stimulus(traffic: dict, n: int):
-    """The traffic's drive as the program's stimulus: its parts in order,
-    each drawing from its own key of the step's split."""
-    from repro_torch.exp import Background, Compose, PoissonDrive
-    parts = []
-    for p in traffic["drive"]:
-        if p["kind"] == "poisson":
-            idx = network.pick(n, p["pick"], p["pick_seed"])
-            parts.append(PoissonDrive(
-                idx=torch.from_numpy(idx.astype(np.int32)),
-                rate_hz=p["rate_hz"], target=p.get("target", "g"),
-                weight=p["weight"]))
-        elif p["kind"] == "background":
-            parts.append(Background(rate_hz=p["rate_hz"]))
-        else:
-            raise ValueError(f"unknown drive part {p['kind']!r}")
-    return Compose(tuple(parts))
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -97,38 +67,26 @@ def _log(*args) -> None:
 def run(root: str, cell: str, seed: int, seconds: float, trace: bool,
         device, t_start: float) -> dict:
     """One run; returns the result line's object."""
-    from repro_torch import obs
-    from repro_torch.core import Connectome, build_synapses
-    from repro_torch.exp import trials
-
     bench = spec.benchmark(root)
     wl = spec.workload(bench, cell)
     conf = spec.config(root, wl["config"])
+    fam = spec.family(root, conf)
     traf = spec.traffic(root, wl["traffic"])
     device = torch.device(device)
     B, T, K = traf["lanes"], traf["t_steps"], traf["chunk_steps"]
-    dt_s = conf["model"]["dt"] * 1e-3
+    dt_s = fam.dt_ms(conf) * 1e-3
     seeds = spec.lane_seeds(seed, B)
 
-    # ---- set-up: network, tile store, stimulus, one short experiment
+    # ---- set-up: network, the program's store, one short experiment
     marks = [("start", time.perf_counter())]
-    net = network.load_network(conf["network"],
-                               os.path.join(root, "build", "portbench"))
+    net = fam.network(conf["network"],
+                      os.path.join(root, "build", "portbench"))
     marks.append(("network", time.perf_counter()))
-    c = Connectome(n=net["n"], **{k: net[k] for k in network.ARRAYS})
-    cfg = program_config(conf)
-    syn = build_synapses(c, cfg, device)
-    stim = program_stimulus(traf, c.n).to(device)
+    program = fam.program(conf, traf, net, device)
     _sync(device)
     marks.append(("store", time.perf_counter()))
 
-    def experiment(t_steps, sink):
-        with obs.telemetry(obs.CallbackSink(sink)):
-            return trials.run_trials(c, cfg, t_steps, seeds=seeds, syn=syn,
-                                     stimulus=stim, chunk_steps=K,
-                                     device=device)
-
-    experiment(min(T, WARM_CHUNKS * K), lambda rec: None)
+    program(min(T, WARM_CHUNKS * K), seeds, K, lambda rec: None)
     a = max(K, (T // 2) // K * K)
     b = min(T, a + PROFILE_CHUNKS * K)
     e = min(T, b + NAMING_CHUNKS * K)
@@ -180,10 +138,10 @@ def run(root: str, cell: str, seed: int, seconds: float, trace: bool,
                 raise WindowClosed
 
         try:
-            res = experiment(T, sink)
+            res = program(T, seeds, K, sink)
         except WindowClosed:
             break
-        completed.append((res.counts, res.dropped, *res.state))
+        completed.append(res)
         exp += 1
     t_close = time.perf_counter()
 
@@ -200,7 +158,7 @@ def run(root: str, cell: str, seed: int, seconds: float, trace: bool,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         peak = int(torch.cuda.max_memory_allocated(device))
-    del experiment, syn, stim, c, res
+    del program, res
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -208,14 +166,17 @@ def run(root: str, cell: str, seed: int, seconds: float, trace: bool,
     # ---- the comparison
     t_ref = time.perf_counter()
     lanes = spec.check_lanes(seed, B, check.CHECK_LANES)
-    ref = reference.simulate(net, conf["model"], traf["drive"],
-                             [seeds[i] for i in lanes], T, device,
-                             record=stretch is not None)
+    ref = fam.reference(net, conf, traf, [seeds[i] for i in lanes], T,
+                        device, record=stretch is not None)
     _sync(device)
-    numbers, failed = check.compare(completed, ref, lanes)
+    fields: dict = {}
+    numbers, failed = check.compare(completed, ref, fam.STATE, lanes, fields)
     correct, checks = check.verdict(numbers, len(completed))
     _log(f"reference: {time.perf_counter() - t_ref:.3f} s for {len(lanes)} "
          f"of {B} lanes x {T} steps; {int(ref.counts.sum())} spikes")
+    if numbers["state_mismatch"]:
+        _log("state mismatches by field: " + ", ".join(
+            f"{k} {v}" for k, v in fields.items()))
 
     # ---- metrics
     if stretch is None:
@@ -230,8 +191,8 @@ def run(root: str, cell: str, seed: int, seconds: float, trace: bool,
         summ = stretch.summary() if stretch.wall_s is not None else None
         least_s = None
         if summ is not None:
-            nbytes, ops = yardstick.least_work(ref.stats, a, b,
-                                               scale=B / len(lanes))
+            nbytes, ops = fam.least_work(ref.stats, a, b,
+                                         scale=B / len(lanes))
             least_s, bound = yardstick.least_seconds(nbytes, ops)
             _log(f"traced steps {a}..{b}: wall {summ['wall_s']:.6f} s, busy "
                  f"{summ['busy_s']:.6f} s, device {summ['device_s']:.6f} s "

@@ -2,10 +2,12 @@
 
 A cell (an entry of ``workloads``) names a configuration and a traffic
 mix; each is a JSON file of its own, ``portbench/configs/<config>.json``
-and ``portbench/traffic/<traffic>.json``, and each per-layer metric is a
-reader ``portbench/metrics/<name>.py``.  A later change adds a cell, a
-configuration, a traffic mix or a metric by adding such files and
-entries; nothing here names one.
+and ``portbench/traffic/<traffic>.json``.  A configuration names its
+model family, a module ``portbench/families/<family>.py`` that builds the
+network, the program and the plain reference (see :func:`family`), and
+each per-layer metric is a reader ``portbench/metrics/<name>.py``.  A
+later change adds a cell, a configuration, a traffic mix, a family or a
+metric by adding such files and entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -75,16 +77,48 @@ def per_layer(bench: dict, cell: str) -> list[dict]:
                 else m["moves"] in e2e)]
 
 
-def metric_reader(name: str):
-    """The ``read(record)`` function of ``portbench/metrics/<name>.py``,
-    loaded by path (a metric's name may hold dots)."""
+def _module(kind: str, name: str, path: str):
+    """The module at ``path``, loaded by path (a name may hold dots)."""
     import importlib.util
-    path = os.path.join(PACKAGE, "metrics", _named("metric", name) + ".py")
     spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"portbench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str):
+    """The ``read(record)`` function of ``portbench/metrics/<name>.py``."""
+    return _module("metric", name, os.path.join(
+        PACKAGE, "metrics", _named("metric", name) + ".py")).read
+
+
+#: What a family module provides (``portbench/README.md`` says what each
+#: must give).
+FAMILY = ("STATE", "dt_ms", "network", "program", "reference", "least_work",
+          "small")
+
+
+def family(root: str, conf: dict):
+    """The module ``<root>/portbench/families/<family>.py`` that the
+    configuration's ``family`` names, loaded by path.  A configuration
+    that names no family, or a family whose file is missing or lacks part
+    of :data:`FAMILY`, is refused."""
+    name = conf.get("family")
+    if name is None:
+        raise ValueError(f"configuration {conf.get('name')!r} names no "
+                         f"family: it needs a \"family\" key naming "
+                         f"portbench/families/<family>.py")
+    path = os.path.join(root, "portbench", "families",
+                        _named("family", name) + ".py")
+    if not os.path.isfile(path):
+        raise ValueError(f"configuration {conf.get('name')!r} names the "
+                         f"family {name!r}, and there is no {path}")
+    mod = _module("family", name, path)
+    missing = [k for k in FAMILY if not hasattr(mod, k)]
+    if missing:
+        raise ValueError(f"family {name!r} ({path}) lacks {missing}")
+    return mod
 
 
 def check_lanes(seed: int, lanes: int, k: int) -> list[int]:

@@ -1,6 +1,6 @@
-"""A benchmark root at the CPU tests' size: ``BENCHMARK.json`` as it is,
-every configuration on a 2,000-neuron, 60,000-synapse network, every
-traffic mix at 3 lanes and a short experiment."""
+"""A benchmark root at the CPU tests' size: ``BENCHMARK.json`` and the
+family files as they are, every configuration at its family's ``small``
+size, every traffic mix at 3 lanes and a short experiment."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import shutil
 
 from portbench import spec
 
-N, SYNAPSES, LANES = 2000, 60_000, 3
+LANES = 3
 
 
 def make_root(path, t_steps: int = 60, chunk_steps: int = 20) -> str:
@@ -18,9 +18,13 @@ def make_root(path, t_steps: int = 60, chunk_steps: int = 20) -> str:
     bench = spec.benchmark(spec.ROOT)
     for sub in ("configs", "traffic"):
         os.makedirs(os.path.join(root, "portbench", sub), exist_ok=True)
+    shutil.copytree(os.path.join(spec.PACKAGE, "families"),
+                    os.path.join(root, "portbench", "families"),
+                    ignore=shutil.ignore_patterns("__pycache__"),
+                    dirs_exist_ok=True)
     for c in bench["configs"]:
         conf = spec.config(spec.ROOT, c["name"])
-        conf["network"].update(n_neurons=N, target_synapses=SYNAPSES)
+        conf = spec.family(spec.ROOT, conf).small(conf)
         with open(os.path.join(root, "portbench", "configs",
                                c["name"] + ".json"), "w") as f:
             json.dump(conf, f)

@@ -36,6 +36,15 @@ def test_configurations(c):
     assert conf["assumed"]
     assert all(spec.NAME.match(k) for k in c["reduced"])
     assert any(w["config"] == c["name"] for w in BENCH["workloads"])
+    # the family it names: a file of portbench/families/ with the interface
+    assert spec.NAME.match(conf["family"])
+    assert os.path.isfile(os.path.join(spec.PACKAGE, "families",
+                                       conf["family"] + ".py"))
+    fam = spec.family(spec.ROOT, conf)
+    assert fam.STATE and all(isinstance(k, str) for k in fam.STATE)
+    assert all(callable(getattr(fam, k)) for k in spec.FAMILY
+               if k != "STATE")
+    assert fam.small(conf)["name"] == conf["name"]
 
 
 @pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])

@@ -1,14 +1,16 @@
 """What the benchmark loads: a fresh interpreter imports every module of
-``portbench`` and the modules a run calls into, and holds no JAX, no
-``jaxlib``, no ``flax`` and nothing of the JAX package ``repro`` (top-level
-names compared whole: ``repro_torch`` is not ``repro``); the plain
-reference loads nothing of the program; nothing reads the JAX package's
-benchmark records."""
+``portbench``, every family file and the modules a run calls into, and
+holds no JAX, no ``jaxlib``, no ``flax`` and nothing of the JAX package
+``repro`` (top-level names compared whole: ``repro_torch`` is not
+``repro``); each family's network and plain reference load nothing of the
+program; nothing reads the JAX package's benchmark records."""
 
 import os
 import pkgutil
 import subprocess
 import sys
+
+import pytest
 
 import portbench
 from portbench import spec
@@ -21,6 +23,30 @@ for name in {mods!r}:
     importlib.import_module(name)
 {extra}
 print(sorted({{m.split(".")[0] for m in sys.modules}}))
+"""
+
+
+FAMILIES = sorted(f[:-3] for f in os.listdir(
+    os.path.join(spec.PACKAGE, "families")) if f.endswith(".py"))
+
+# the family's network and reference at the tests' size, in every cell
+# whose configuration names it, with and without the control
+REFERENCE = """
+from portbench import spec
+seen = set()
+for w in spec.benchmark()["workloads"]:
+    conf = spec.config(spec.ROOT, w["config"])
+    if conf["family"] != {name!r} or (w["config"], w["traffic"]) in seen:
+        continue
+    seen.add((w["config"], w["traffic"]))
+    fam = spec.family(spec.ROOT, conf)
+    conf = fam.small(conf)
+    traf = spec.traffic(spec.ROOT, w["traffic"])
+    net = fam.network(conf["network"], {cache!r})
+    ref = fam.reference(net, conf, traf, [1, 2], 4, "cpu", record=True)
+    fam.least_work(ref.stats, 0, 4, 1.0)
+    fam.reference(net, conf, traf, [1, 2], 4, "cpu", control=True)
+assert seen, "no cell's configuration names the family"
 """
 
 
@@ -54,15 +80,20 @@ def test_a_run_loads_no_jax():
     tops = _loaded(mods, extra=(
         "from portbench import spec\n"
         "for m in spec.benchmark()['per_layer']:\n"
-        "    spec.metric_reader(m['name'])"))
+        "    spec.metric_reader(m['name'])\n"
+        f"for f in {FAMILIES!r}:\n"
+        "    spec.family(spec.ROOT, {'family': f})"))
     assert "repro_torch" in tops and "portbench" in tops
     assert not tops & {"jax", "jaxlib", "flax", "repro"}
 
 
-def test_the_reference_loads_nothing_of_the_program():
+@pytest.mark.parametrize("name", FAMILIES)
+def test_the_reference_loads_nothing_of_the_program(name, tmp_path):
     tops = _loaded(["portbench.reference.sim", "portbench.reference.threefry",
                     "portbench.network", "portbench.check",
-                    "portbench.yardstick"])
+                    "portbench.yardstick", "portbench.spec"],
+                   extra=REFERENCE.format(name=name, cache=str(tmp_path)))
+    assert "torch" in tops
     assert not tops & {"repro_torch", "repro", "jax", "jaxlib", "flax"}
 
 

@@ -8,8 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import harness, network, spec
-from portbench.reference import sim as reference
+from portbench import network, spec
 from portbench.reference import threefry
 from portbench.tests.smoke import make_root
 
@@ -19,6 +18,10 @@ T = 120
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     return make_root(tmp_path_factory.mktemp("root"), t_steps=T)
+
+
+def flywire_lif():
+    return spec.family(spec.ROOT, {"family": "flywire_lif"})
 
 
 @pytest.mark.parametrize("n, syn, seed", [(500, 8_000, 0), (2000, 60_000, 3)])
@@ -62,11 +65,12 @@ def test_drive_is_the_named_scenario(name):
     from repro_torch.exp import build_scenario
     traf = spec.traffic(spec.ROOT, name)
     conf = spec.config(spec.ROOT, "flywire-q19")
-    cfg = harness.program_config(conf)
+    fam = flywire_lif()
+    cfg = fam.program_config(conf)
 
     class C:
         n = 2000
-    ours = harness.program_stimulus(traf, C.n)
+    ours = fam.program_stimulus(traf, C.n)
     theirs = build_scenario(traf["named"]["scenario"], C, cfg,
                             **traf["named"]["params"])
     assert [type(p) for p in ours.parts] == [type(p) for p in theirs.parts]
@@ -80,28 +84,23 @@ def test_drive_is_the_named_scenario(name):
 @pytest.mark.parametrize("cell", [w["name"] for w in
                                   spec.benchmark()["workloads"]])
 def test_reference_equals_the_program(root, cell):
-    from repro_torch import obs
-    from repro_torch.core import Connectome, build_synapses
-    from repro_torch.exp import run_trials
+    """Through the configuration's family: its program (``run_trials``
+    as the window drives it) and its reference (``reference/sim.py``)."""
     bench = spec.benchmark(root)
     wl = spec.workload(bench, cell)
     conf, traf = spec.config(root, wl["config"]), spec.traffic(
         root, wl["traffic"])
-    net = network.load_network(conf["network"], root + "/build/portbench")
-    c = Connectome(n=net["n"], **{k: net[k] for k in network.ARRAYS})
-    cfg = harness.program_config(conf)
+    fam = spec.family(root, conf)
+    net = fam.network(conf["network"], root + "/build/portbench")
     seeds = spec.lane_seeds(2**31 + 17, traf["lanes"])
-    with obs.telemetry(obs.CallbackSink(lambda rec: None)):
-        res = run_trials(c, cfg, T, seeds=seeds,
-                         syn=build_synapses(c, cfg, "cpu"),
-                         stimulus=harness.program_stimulus(traf, c.n),
-                         chunk_steps=traf["chunk_steps"], device="cpu")
-    ref = reference.simulate(net, conf["model"], traf["drive"], seeds, T,
-                             "cpu")
+    counts, dropped, state = fam.program(conf, traf, net, "cpu")(
+        T, seeds, traf["chunk_steps"], lambda rec: None)
+    ref = fam.reference(net, conf, traf, seeds, T, "cpu")
     assert int(ref.counts.sum()) > 0
-    assert torch.equal(res.counts, ref.counts)
-    assert torch.equal(res.dropped, ref.dropped)
-    for a, b in zip(res.state, (ref.v, ref.g, ref.refrac)):
+    assert torch.equal(counts, ref.counts)
+    assert torch.equal(dropped, ref.dropped)
+    assert len(state) == len(ref.state) == len(fam.STATE) == 3
+    for a, b in zip(state, ref.state):
         assert a.dtype == b.dtype
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
