@@ -107,6 +107,15 @@ kernel against its plain PyTorch version, then drives these paths:
   path (``--smoke --data 2 --model 1`` under ``torchrun``) printing the
   unsharded run's lines.
 
+The ``delay_event`` engine (per-synapse delays into a ring of pending
+input) runs the benchmark's microcircuit cell as it is
+(``portbench``'s ``pd14-q19`` configuration and ``bg8-b1024`` traffic:
+77,169 neurons, 298.9M synapses, 58 ring slots, 1,024 lanes): the cell's
+2,000 steps of ``run_trials`` from rest, each of its two kernels launched
+once a step; then one more step from that run's final state, bitwise its
+plain version (``kernels/delay_event/ref.py``) on the same card, each
+kernel timed against its least bytes and the plain step beside them.
+
 The port's cost tools (``repro_torch.launch``) are held against the
 card: qwen2.5-14b's prefill and 4-slot decode step are counted on meta
 tensors (``launch.hlo.count``) beside the same calls on the card, whose
@@ -157,6 +166,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 without tensor cores
 TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 BF16_FLOP_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
+PD14_CONFIG, PD14_TRAFFIC = "pd14-q19", "bg8-b1024"   # portbench's cell
+PD14_SEED = 2**31 + 30
 THREEFRY_OPS = 70              # a threefry-2x32 block, and the rate of any
 OPS_PER_S = 66.9e12            # one operation, as portbench/yardstick.py
 N_FULL = 139_255
@@ -1714,6 +1725,131 @@ def phase_threefry(smi):
               f"{max(t_ops, t_bytes):.7f} ms ({out[label]['bound_by']}); "
               f"bitwise the chain; card {smi}", flush=True)
         del carry, key, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+@phase("delay_event at the microcircuit cell's shapes")
+def phase_delay_event(smi):
+    """The cell ``pd14-bg8-b1024``'s network, configuration and stimulus
+    through portbench's ``pd14_lif`` family (the network generated into
+    ``build/portbench/`` on first use): ``run_trials`` of the cell's lanes
+    and steps in its chunks on the card, ``LAUNCHES`` counted around it;
+    then the step after its last, its drive drawn from fresh keys, through
+    ``delay_step`` and through the plain ``delay_step_ref`` from the same
+    ring and state: the LIF state, the spikes, the ring and both counters
+    bitwise equal.  Each kernel's device time (profiler; the ring restored
+    from a copy before each call) against its least bytes at
+    HBM_BYTES_PER_S: 8 bytes a synapse event for ``delay_deliver`` (its
+    4-byte word read, 4 bytes added), 41 bytes a lane-neuron for
+    ``pending_lif`` (v, g and the countdown read and written, the slot
+    read and zeroed, the drive's word read, the spike written); the plain
+    step's device time by CUDA events.  Frees everything it made."""
+    import numpy as np
+    import torch
+    from portbench import spec
+    from repro_torch import random as prng
+    from repro_torch.core import build_synapses, from_fanout
+    from repro_torch.core.neuron import LIFState
+    from repro_torch.exp import n_split, run_trials
+    from repro_torch.kernels.delay_event import kernel as DK
+    from repro_torch.kernels.delay_event.ref import delay_step_ref
+    here = os.path.dirname(os.path.abspath(__file__))
+    conf = spec.config(here, PD14_CONFIG)
+    fam = spec.family(here, conf)
+    traf = spec.traffic(here, PD14_TRAFFIC)
+    B, T, K = traf["lanes"], traf["t_steps"], traf["chunk_steps"]
+    t0 = time.perf_counter()
+    net = fam.network(conf["network"], os.path.join(here, "build",
+                                                    "portbench"))
+    c = from_fanout(net["n"], net["out_indptr"], net["out_indices"],
+                    net["out_weights"], net["out_delays"])
+    stim = fam.program_stimulus(conf, traf, net).to(DEVICE)
+    del net
+    cfg = fam.program_config(conf)
+    syn = build_synapses(c, cfg, DEVICE)
+    print(f"pd14: {c.n} neurons, {c.nnz} synapses, D {syn.depth}, "
+          f"{B} lanes; set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    DK.reset_launches()
+    t0 = time.perf_counter()
+    res = run_trials(c, cfg, T, seeds=spec.lane_seeds(PD14_SEED, B),
+                     syn=syn, stimulus=stim, chunk_steps=K, device=DEVICE)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(DK.LAUNCHES)
+    check(launches == {"pending_lif": T, "delay_deliver": T},
+          f"delay_event launches {launches} in {T} steps")
+    spikes_run = int(res.counts.sum())
+    check(spikes_run > 0, "the microcircuit never spiked")
+    print(f"pd14 run_trials: {T} steps x {B} lanes in {run_s:.3f} s, "
+          f"{spikes_run / (B * T):.3f} spikes a lane-step; launches "
+          f"{launches}", flush=True)
+    v, g, refrac, ring = res.state
+    pending = ring.movedim(-1, 0)                       # [D, B, n], no copy
+    check(pending.is_contiguous(), "the ring came back as a copy")
+    del res
+    lif = LIFState(v=v, g=g, refrac=refrac)
+    ptr = T % syn.depth
+    keys = prng.split(prng.split(prng.PRNGKey(T), B).to(DEVICE),
+                      n_split(stim))
+    _, drive = stim.step(stim.init_state(c.n), keys[..., 1:, :], T, c.n,
+                         cfg.params)
+    saved = pending.clone()
+    got = DK.delay_step(syn, pending, ptr, lif, drive, cfg.params,
+                        cfg.fixed_point)
+    want_ring = saved.clone()
+    want = delay_step_ref(syn.indptr, syn.words, syn.tgt_bits, syn.w_bits,
+                          want_ring, ptr, lif, drive, cfg.params,
+                          cfg.fixed_point)
+    torch.cuda.synchronize()
+    check(equal_all(list(got[0]), list(want[0])), "delay_step's LIF state "
+          "!= the plain version's")
+    check(torch.equal(got[1], want[1]), "delay_step's spikes != plain")
+    check(torch.equal(pending, want_ring), "delay_step's ring != plain")
+    stats = {}
+    for k in ("syn_events", "drive_events"):
+        check(torch.equal(got[2][k], want[2][k]), f"{k} != plain")
+        stats[k] = int(want[2][k].sum())
+    spikes = int(want[1].sum())
+    del got, want, want_ring
+    print(f"pd14 step {T}: {spikes} spikes, {stats['syn_events']} synapse "
+          f"events, {stats['drive_events']} drive events; bitwise the "
+          f"plain version", flush=True)
+
+    def step():
+        pending.copy_(saved)
+        DK.delay_step(syn, pending, ptr, lif, drive, cfg.params,
+                      cfg.fixed_point)
+    ms = {name: kernel_device_ms(step, 10, name)
+          for name in ("pending_lif", "delay_deliver")}
+    plain = []
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(3):
+        pending.copy_(saved)
+        torch.cuda.synchronize()
+        a.record()
+        delay_step_ref(syn.indptr, syn.words, syn.tgt_bits, syn.w_bits,
+                       pending, ptr, lif, drive, cfg.params, cfg.fixed_point)
+        b.record()
+        torch.cuda.synchronize()
+        plain.append(a.elapsed_time(b))
+    plain_ms = float(np.median(plain))
+    lane_neurons = B * c.n
+    bounds = {"pending_lif": lane_neurons * 41 / HBM_BYTES_PER_S * 1e3,
+              "delay_deliver": 8 * stats["syn_events"] / HBM_BYTES_PER_S
+              * 1e3}
+    out = {}
+    for name in ("pending_lif", "delay_deliver"):
+        out[name] = {"ms": ms[name], "plain_ms": plain_ms,
+                     "bound_ms": bounds[name], "bound_by": "bytes",
+                     "library_ms": None, "launches": launches[name],
+                     "shape": [B, c.n, syn.depth], "spikes": spikes,
+                     **stats}
+        print(f"{name}: {ms[name]:.5f} ms/launch at the cell's step "
+              f"{T} ({B} lanes, {spikes} spikes, {stats['syn_events']} "
+              f"events), bound {bounds[name]:.5f} ms (bytes), the plain "
+              f"step {plain_ms:.3f} ms; card {smi}", flush=True)
+    del pending, saved, ring, lif, v, g, refrac, drive, syn, stim, c
     torch.cuda.empty_cache()
     return out
 
@@ -4843,6 +4979,7 @@ def main() -> int:
     check_err.update(phase_lif_check())
     check_err["flash_attention"] = phase_flash_check()
     threefry = phase_threefry(smi)
+    delay_event = phase_delay_event(smi)
 
     (yard, activity, launches, sharded, sharded_launches, lanes,
      dist_trials_out, extra) = flywire_section(smi)
@@ -4962,6 +5099,16 @@ def main() -> int:
             "held_against_plain": True,
             "cases": {label: case for label, case in threefry.items()
                       if case["wrapper"] == name}})
+    # the delay_event engine's two kernels stand in for no TPU kernel (the
+    # JAX package has one uniform delay): the microcircuit cell's run and
+    # the step after it
+    from repro_torch.kernels.delay_event import kernel as DK
+    for name in ("pending_lif", "delay_deliver"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": rel(DK.SOURCE),
+            "replaces": "src/repro_torch/kernels/delay_event/ref.py",
+            "max_abs_err": 0.0, **delay_event[name],
+            "held_against_plain": True})
     check(len(family_launches) == len(LM_FAMILIES) + 1
           and all(n > 0 for name, n in family_launches.items()
                   if not name.startswith("rwkv6"))

@@ -10,7 +10,7 @@ with the ``faulty`` exchange scheme, and the rate-parity statistic of
 from .capacity import (DISTRIBUTED_CAPACITY, MONOLITHIC_CAPACITY,
                        CapacityConfig, escalate_capacity)
 from .compress import WEIGHT_BITS, quantize_weights
-from .connectome import (Connectome, cache_path, from_edges,
+from .connectome import (Connectome, cache_path, from_edges, from_fanout,
                          load_flywire_parquet, synthetic_flywire,
                          synthetic_flywire_cached)
 from .engine import (SimCarry, SimConfig, SimResult, build_synapses,

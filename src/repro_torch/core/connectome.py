@@ -49,19 +49,29 @@ class Connectome:
       out_indptr / out_indices / out_weights: source-major transpose
         (fan-out lists; out_weights[k] is the weight of the synapse onto
         out_indices[k]).
+      out_delays: [nnz] delay in steps (>= 1) of each fan-out synapse, or
+        None: the network has the one uniform delay of ``LIFParams.delay``.
+        Only the ``delay_event`` engine reads it.
+
+    A network with a delay a synapse may be held source-major alone
+    (:func:`from_fanout`, the in_* arrays None): the engines that read the
+    target-major lists then cannot build it.
     """
 
     n: int
-    in_indptr: np.ndarray
-    in_indices: np.ndarray
-    in_weights: np.ndarray
-    out_indptr: np.ndarray
-    out_indices: np.ndarray
-    out_weights: np.ndarray
+    in_indptr: Optional[np.ndarray] = None
+    in_indices: Optional[np.ndarray] = None
+    in_weights: Optional[np.ndarray] = None
+    out_indptr: Optional[np.ndarray] = None
+    out_indices: Optional[np.ndarray] = None
+    out_weights: Optional[np.ndarray] = None
+    out_delays: Optional[np.ndarray] = None
 
     @property
     def nnz(self) -> int:
-        return int(self.in_indices.shape[0])
+        ids = self.in_indices if self.in_indices is not None \
+            else self.out_indices
+        return int(ids.shape[0])
 
     @property
     def fan_in(self) -> np.ndarray:
@@ -86,16 +96,22 @@ class Connectome:
         }
 
     def validate(self) -> None:
-        assert self.in_indptr.shape == (self.n + 1,)
+        if self.in_indptr is not None:
+            assert self.in_indptr.shape == (self.n + 1,)
+            assert self.in_indptr[0] == 0 and self.in_indptr[-1] == self.nnz
+            assert np.all(np.diff(self.in_indptr) >= 0)
         assert self.out_indptr.shape == (self.n + 1,)
-        assert self.in_indptr[0] == 0 and self.in_indptr[-1] == self.nnz
         assert self.out_indptr[-1] == self.nnz
-        assert np.all(np.diff(self.in_indptr) >= 0)
         assert np.all(np.diff(self.out_indptr) >= 0)
         if self.nnz:
-            assert self.in_indices.min() >= 0
-            assert self.in_indices.max() < self.n
+            if self.in_indices is not None:
+                assert self.in_indices.min() >= 0
+                assert self.in_indices.max() < self.n
+            assert self.out_indices.min() >= 0
             assert self.out_indices.max() < self.n
+        if self.out_delays is not None:
+            assert self.out_delays.shape == (self.nnz,)
+            assert not self.nnz or self.out_delays.min() >= 1
 
     def dense(self, dtype=np.float32) -> np.ndarray:
         """Dense [n, n] weight matrix W with W[target, source] — test-scale only."""
@@ -117,6 +133,22 @@ def _transpose_csr(n, indptr, indices, weights):
     t_indices = rows[order].astype(indices.dtype)
     t_weights = weights[order]
     return t_indptr, t_indices, t_weights
+
+
+def from_fanout(n: int, out_indptr, out_indices, out_weights,
+                out_delays=None) -> Connectome:
+    """A network held source-major alone: fan-out lists (``out_indptr``
+    [n+1], ``out_indices`` / ``out_weights`` [nnz]) and optionally each
+    synapse's delay in steps (``out_delays`` [nnz], >= 1).  Same-pair
+    synapses are kept apart (multapses with their own weights and
+    delays), and the arrays are taken as they are, without a copy."""
+    c = Connectome(n=int(n), out_indptr=np.asarray(out_indptr),
+                   out_indices=np.asarray(out_indices),
+                   out_weights=np.asarray(out_weights),
+                   out_delays=None if out_delays is None
+                   else np.asarray(out_delays))
+    c.validate()
+    return c
 
 
 def from_edges(

@@ -79,6 +79,7 @@ from repro_torch.tree import map_tensors
 from .capacity import DISTRIBUTED_CAPACITY, CapacityConfig, merge_legacy_capacity
 from .dcsr import DCSR
 from .engine import SimConfig, resolve_device, single_lane
+from .engines import refuse_per_synapse_delays
 from .exchange import Topology, all_gather, all_gather_group, get_scheme
 from .health import (SimCheckpointer, carry_counters, health_stats_init,
                      run_chunked)
@@ -671,6 +672,7 @@ def simulate_distributed(
     rank).  A rank's telemetry counts its own partition, apart from the
     ``run_end`` counters, which are the gathered run's.
     """
+    refuse_per_synapse_delays(cfg.sim.engine, "simulate_distributed")
     mesh = _mesh_for(d, emulate, mesh, device)
     tele = obs.active()
     with obs.span("simulate_distributed", scheme=cfg.scheme):

@@ -2,9 +2,14 @@
 
 Counterpart of ``repro/core/engine.py``.  :func:`simulate` builds the
 engine's synaptic state on the device once, sets up the carry (LIF state,
-the ring buffer of the uniform 1.8 ms synaptic delay, the PRNG key,
-counters) and runs the step loop of :mod:`repro_torch.core.step` through
-the P=1 ``local`` exchange scheme.
+a ring, the PRNG key, counters) and runs the step loop of
+:mod:`repro_torch.core.step` through the P=1 ``local`` exchange scheme.
+The ring is one of two (:class:`~repro_torch.core.step.SimCarry`): for
+every engine of the JAX package, the bool ring of the spikes of the one
+uniform delay (1.8 ms for FlyWire), ``[D, B, n]`` with D = ``delay_steps``;
+for the ``delay_event`` engine, whose synapses each have a delay, the
+int32 ring of pending input, ``[D, B, n]`` with D its longest delay + 1,
+which the run's final state returns as ``[B, n, D]``.
 
 The step runs a batch of lanes (the reference's ``vmap`` over trials,
 written out as a leading axis): :func:`init_carry` makes a trial batch's
@@ -45,11 +50,11 @@ from repro_torch import random as prng
 
 from .capacity import MONOLITHIC_CAPACITY, CapacityConfig, merge_legacy_capacity
 from .connectome import Connectome
-from .engines import available_engines, get_engine
+from .engines import available_engines, get_engine, pending_depth
 from .health import (HealthConfig, SimCheckpointer, carry_counters,
                      health_stats_init, run_chunked)
 from .neuron import LIFParams, LIFState, f32, init_state
-from .step import SimCarry, scan_steps
+from .step import SimCarry, final_state, scan_steps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,53 +106,75 @@ def resolve_device(device=None) -> torch.device:
 
 def build_synapses(c: Connectome, cfg: SimConfig, device=None) -> Any:
     """Build the engine's synaptic state on ``device``; pass it back to
-    :func:`simulate` via ``syn=`` to reuse it across runs."""
-    with obs.span("build", what="synapses", engine=cfg.engine):
-        return get_engine(cfg.engine).build(c, cfg, resolve_device(device))
+    :func:`simulate` via ``syn=`` to reuse it across runs.  For an engine
+    with per-synapse delays the ``build`` span carries the store's
+    ``store_bytes`` and its pending ring's ``depth``."""
+    with obs.span("build", what="synapses", engine=cfg.engine) as sp:
+        syn = get_engine(cfg.engine).build(c, cfg, resolve_device(device))
+        if pending_depth(cfg, syn) is not None:
+            sp.attrs.update(store_bytes=syn.nbytes, depth=syn.depth)
+        return syn
 
 
 class SimResult(NamedTuple):
     counts: torch.Tensor
-    state: LIFState
+    state: LIFState        # or a PendingState (per-synapse delays)
     dropped: torch.Tensor
     raster: torch.Tensor | None
     records: dict          # ProbeSpec-selected [T, ...] tensors
     stats: dict = {}       # health counters (repro_torch.core.health)
 
 
-def init_carry(n: int, cfg: SimConfig, stimulus, seed, device) -> SimCarry:
+def init_carry(n: int, cfg: SimConfig, stimulus, seed, device,
+               depth: Optional[int] = None) -> SimCarry:
     """The carry at step 0 of a run from ``seed``: an int gives a single
     run's carry (leaves ``[n]``, ring ``[D, n]``, key ``[2]``), a sequence
     of seeds a trial batch's in the step's lane layout (leaves ``[B, n]``,
     ring ``[D, B, n]``, keys ``[B, 2]``), lane b starting as a single run
-    from ``seed[b]`` would."""
+    from ``seed[b]`` would.  ``depth`` (an engine with per-synapse delays:
+    :func:`~repro_torch.core.engines.pending_depth`) gives the carry a
+    zero pending ring of that many slots, and the engine's counters, in
+    place of the ring of spikes."""
     if isinstance(seed, (int, np.integer)):
-        return single_lane(init_carry(n, cfg, stimulus, [int(seed)], device))
+        return single_lane(init_carry(n, cfg, stimulus, [int(seed)], device,
+                                      depth))
     keys = torch.stack([prng.PRNGKey(s, device=device) for s in seed])
     B = keys.shape[0]
 
     def lanes(x):
         return x.expand((B,) + x.shape).clone()
+    stats = health_stats_init(cfg, B, device)
+    ring = pending = None
+    if depth is None:
+        ring = torch.zeros((cfg.params.delay_steps, B, n), dtype=torch.bool,
+                           device=device)
+    else:
+        pending = torch.zeros((depth, B, n), dtype=torch.int32,
+                              device=device)
+        stats.update(get_engine(cfg.engine).init_stats(B, device))
     return SimCarry(
         lif=LIFState(*(lanes(x) for x in init_state(
             n, cfg.params, cfg.fixed_point, device=device))),
-        ring=torch.zeros((cfg.params.delay_steps, B, n), dtype=torch.bool,
-                         device=device),
+        ring=ring,
         ptr=0,
         key=keys,
         counts=torch.zeros((B, n), dtype=torch.int32, device=device),
         dropped=torch.zeros(B, dtype=torch.int32, device=device),
         stim=stimulus.init_state(n),
-        stats=health_stats_init(cfg, B, device),
+        stats=stats,
+        pending=pending,
     )
 
 
 def _map_lanes(carry: SimCarry, fn, ring_fn) -> SimCarry:
+    def rings(x):
+        return None if x is None else ring_fn(x)
     return carry._replace(
-        lif=LIFState(*(fn(x) for x in carry.lif)), ring=ring_fn(carry.ring),
+        lif=LIFState(*(fn(x) for x in carry.lif)), ring=rings(carry.ring),
         key=fn(carry.key), counts=fn(carry.counts),
         dropped=fn(carry.dropped),
-        stats={k: fn(v) for k, v in carry.stats.items()})
+        stats={k: fn(v) for k, v in carry.stats.items()},
+        pending=rings(carry.pending))
 
 
 def lane_batch(carry: SimCarry) -> SimCarry:
@@ -258,7 +285,8 @@ def simulate(
         stimulus = _resolve_stimulus(cfg, n, sugar_neurons,
                                      stimulus).to(device)
         probes = _resolve_probes(cfg, probes)
-        carry = init_carry(n, cfg, stimulus, seed, device)
+        carry = init_carry(n, cfg, stimulus, seed, device,
+                           pending_depth(cfg, syn))
         if tele is not None:
             tele.emit("run_start", kind="simulate", engine=cfg.engine,
                       n=n, t_steps=t_steps, chunk_steps=chunk_steps,
@@ -282,7 +310,7 @@ def simulate(
                       counters=carry_counters(carry),
                       metrics=tele.metrics.counters())
             stats["compile_cache"] = tele.metrics.compile_snapshot()
-    return SimResult(counts=carry.counts, state=carry.lif,
+    return SimResult(counts=carry.counts, state=final_state(carry),
                      dropped=carry.dropped, raster=records.get("raster"),
                      records=records, stats=stats)
 

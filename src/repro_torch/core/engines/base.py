@@ -25,6 +25,14 @@ class DeliveryEngine(Protocol):
     delivery and provides ``deliver_fused(state, spikes, lif, drive, cfg)
     -> (new_lif, spikes [n] bool, dropped)``; the step body then calls it
     instead of ``deliver`` + the separate LIF update.
+
+    An engine that sets ``per_synapse_delays = True`` (``delay_event``)
+    delivers at each synapse's own delay: its state has a ``depth``, the
+    carry holds a ring of pending input of that many slots in place of
+    the ring of spikes, and the step body calls ``deliver_pending(state,
+    pending, ptr, lif, drive, cfg) -> (new_lif, spikes, dropped, stats)``;
+    ``init_stats(lanes, device)`` gives the counters it adds to the
+    carry's.  Only the P = 1 ``local`` path runs it.
     """
 
     name: str
@@ -65,6 +73,26 @@ def engine_integrates_lif(name: str) -> bool:
     return bool(getattr(get_engine(name), "integrates_lif", False))
 
 
+def per_synapse_delays(name: str) -> bool:
+    """True iff ``name``'s engine delivers into a ring of pending input."""
+    return bool(getattr(get_engine(name), "per_synapse_delays", False))
+
+
+def pending_depth(cfg, syn) -> int | None:
+    """The slots of the pending ring that ``cfg.engine``'s built state
+    ``syn`` needs, or None for an engine of the ring of spikes."""
+    return syn.depth if per_synapse_delays(cfg.engine) else None
+
+
+def refuse_per_synapse_delays(name: str, where: str) -> None:
+    """Raise for an engine with per-synapse delays on a path that holds
+    no pending ring (the partitioned runners, the server)."""
+    if per_synapse_delays(name):
+        raise ValueError(
+            f"{where} does not run the {name!r} engine: its per-synapse "
+            f"delays need the pending ring of run_trials / simulate (P = 1)")
+
+
 def quantized_in_weights(c: Connectome, cfg):
     """Target-major weights with the config's optional 9-bit cap applied."""
     from ..compress import quantize_weights
@@ -75,4 +103,5 @@ def quantized_in_weights(c: Connectome, cfg):
 
 
 __all__ = ["DeliveryEngine", "available_engines", "engine_integrates_lif",
-           "get_engine", "quantized_in_weights", "register"]
+           "get_engine", "pending_depth", "per_synapse_delays",
+           "quantized_in_weights", "refuse_per_synapse_delays", "register"]

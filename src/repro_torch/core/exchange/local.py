@@ -2,7 +2,8 @@
 
 Every neuron lives on one partition, so the exchange sends the delayed
 spikes to itself and delivery is whatever the registered delivery engine
-does.
+does.  It is the one scheme that runs an engine with per-synapse delays
+(``deliver_pending``: the engine's step on the carry's pending ring).
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ class LocalExchange:
     def fuses_lif(self, sim) -> bool:
         from ..engines import engine_integrates_lif
         return engine_integrates_lif(sim.engine)
+
+    def deliver_pending(self, state, pending, ptr, lif, drive, sim, cap,
+                        topo: Topology):
+        from ..engines import get_engine
+        return get_engine(sim.engine).deliver_pending(state, pending, ptr,
+                                                      lif, drive, sim)
 
     def deliver_fused(self, state, payload, delayed, lif, drive, sim, cap,
                       topo: Topology):

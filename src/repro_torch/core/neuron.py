@@ -220,14 +220,20 @@ def lif_step(state: LIFState, g_units: torch.Tensor, params: LIFParams,
 
 def lif_step_fx(state: LIFState, g_in_units: torch.Tensor, params: LIFParams,
                 v_in_units: torch.Tensor | None = None,
-                force_spike: torch.Tensor | None = None
+                force_spike: torch.Tensor | None = None, *, wide: bool = False
                 ) -> tuple[LIFState, torch.Tensor]:
     """One step, int32 fixed-point path (Loihi 2 microcode analogue).
 
     ``g_in_units`` are raw integer weight sums (not scaled by w_scale);
-    state is Q19.12 in units of w_scale.
+    state is Q19.12 in units of w_scale.  The two decay products wrap in
+    int32 as the reference's do, or with ``wide`` are taken in 64 bits
+    (the ``delay_event`` engine's: at tau_g 0.5 ms the int32 product of
+    ``g >> 2`` wraps once |g| passes 160 weight units); the two agree
+    wherever nothing wraps.
     """
     p = params
+    mul = (lambda a, b: a * b) if wide else \
+        (lambda a, b: wrap_i32(a * b).long())
     active = state.refrac <= 0
     v, g = state.v.long(), state.g.long()
     g = torch.where(active, wrap_i32(g + (g_in_units.long() << FX_FRAC_BITS)),
@@ -237,9 +243,9 @@ def lif_step_fx(state: LIFState, g_in_units: torch.Tensor, params: LIFParams,
                         wrap_i32(v + (v_in_units.long() << FX_FRAC_BITS)),
                         state.v).long()
     x = wrap_i32(p.fx_v0 - v + g).long()
-    dv = wrap_i32((x >> 2) * p.fx_alpha_m16).long() >> 14
+    dv = mul(x >> 2, p.fx_alpha_m16) >> 14
     v = torch.where(active, wrap_i32(v + dv), v.int())
-    dg = wrap_i32((g >> 2) * p.fx_gdecay16).long() >> 14
+    dg = mul(g >> 2, p.fx_gdecay16) >> 14
     g = torch.where(active, wrap_i32(g - dg), g.int())
     spikes = active & (v > p.fx_v_th)
     if force_spike is not None:

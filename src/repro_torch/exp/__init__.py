@@ -5,9 +5,11 @@ named-scenario registry and trial batches (counterpart of
 from .probes import NO_PROBES, ProbeSpec
 from .scenarios import (Scenario, available_scenarios, build_scenario,
                         get_scenario, register_scenario)
-from .stimulus import (SILENT, Background, Compose, PoissonDrive, PulseTrain,
-                       RampDrive, SkipKey, StepCurrent, StimDrive, apply_drive,
-                       legacy_stimulus, n_split, per_neuron, shard_stimulus)
+from .stimulus import (SILENT, Background, Compose, CountDraw, PoissonCount,
+                       PoissonDrive, PulseTrain, RampDrive, SkipKey,
+                       StepCurrent, StimDrive, apply_drive, count_events,
+                       legacy_stimulus, n_split, per_neuron,
+                       poisson_count_table, shard_stimulus)
 from .trials import (DistTrialResult, TrialResult, run_dist_trials,
                      run_trials, trial_carry)
 
@@ -15,9 +17,10 @@ __all__ = [
     "NO_PROBES", "ProbeSpec",
     "Scenario", "available_scenarios", "build_scenario", "get_scenario",
     "register_scenario",
-    "SILENT", "Background", "Compose", "PoissonDrive", "PulseTrain",
-    "RampDrive", "SkipKey", "StepCurrent", "StimDrive", "apply_drive",
-    "legacy_stimulus", "n_split", "per_neuron", "shard_stimulus",
+    "SILENT", "Background", "Compose", "CountDraw", "PoissonCount",
+    "PoissonDrive", "PulseTrain", "RampDrive", "SkipKey", "StepCurrent",
+    "StimDrive", "apply_drive", "count_events", "legacy_stimulus", "n_split",
+    "per_neuron", "poisson_count_table", "shard_stimulus",
     "DistTrialResult", "TrialResult", "run_dist_trials", "run_trials",
     "trial_carry",
 ]

@@ -9,7 +9,10 @@ Drive channels (all optional, combined additively / by OR):
 
 * ``v_mv``    — direct membrane drive in mV (Brian2-style Poisson semantics);
 * ``g_units`` — synaptic drive in integer weight units (Loihi approximation);
-* ``force``   — forced spikes this step (the scaling study's background).
+* ``force``   — forced spikes this step (the scaling study's background);
+* ``counts``  — a Poisson count drive onto g (:class:`PoissonCount`), left
+  as its raw threefry words, which the ``delay_event`` engine counts where
+  it reads them; every other engine refuses it.
 
 RNG contract, as in the reference: the step splits its carry key into
 :func:`n_split` subkeys and hands ``keys[..., 1:, :]`` to the stimulus,
@@ -48,12 +51,36 @@ from repro_torch.core.neuron import (LIFParams, f32, f32_to_i32, f32s, ftz,
 from repro_torch.tree import map_tensors
 
 
+class CountDraw(NamedTuple):
+    """A step's Poisson count drive, not yet counted: neuron i of a lane
+    receives ``weight`` units for each threshold of its population's row
+    of ``table`` that its word reaches (:func:`count_events`)."""
+
+    bits: torch.Tensor     # [..., n] int64: one 32-bit threefry word each
+    pop: torch.Tensor      # [n] int32 population of each neuron
+    table: torch.Tensor    # [P, K] int64 thresholds, 2**32 past the last
+    weight: float          # weight units an event
+
+
 class StimDrive(NamedTuple):
     """Per-step drive; ``None`` channels cost nothing."""
 
     v_mv: torch.Tensor | None = None      # [..., n] float32 drive, mV
     g_units: torch.Tensor | None = None   # [..., n] float32, weight units
     force: torch.Tensor | None = None     # [..., n] bool forced spikes
+    counts: CountDraw | None = None       # Poisson count drive onto g
+
+
+def count_events(draw: CountDraw) -> torch.Tensor:
+    """``[..., n]`` int32 events of a count drive: how many of its
+    population's thresholds each word reaches (the thresholds rise along a
+    row, so that is the Poisson count whose CDF the row holds)."""
+    thr = draw.table[draw.pop.long()]                        # [n, K]
+    count = torch.zeros(draw.bits.shape, dtype=torch.int32,
+                        device=draw.bits.device)
+    for k in range(thr.shape[1]):
+        count += (draw.bits >= thr[:, k]).to(torch.int32)
+    return count
 
 
 def n_split(stim) -> int:
@@ -63,12 +90,13 @@ def n_split(stim) -> int:
 
 
 def apply_drive(lif, g_units: torch.Tensor, drive: StimDrive, p: LIFParams,
-                fixed_point: bool):
+                fixed_point: bool, *, wide: bool = False):
     """Apply a :class:`StimDrive` to the delivered synaptic input and
     integrate one LIF step -> ``(new_lif, spikes)``: the g add (flushed to
     zero as XLA's CPU code flushes it) before the fixed-point rounding, and
     the Q19.12 conversion of ``v_mv`` by an IEEE division, as the reference
-    does them."""
+    does them.  ``wide``: the Q19.12 step's products in 64 bits
+    (:func:`repro_torch.core.neuron.lif_step_fx`)."""
     if drive.g_units is not None:
         g_units = ftz(ftz(g_units) + ftz(drive.g_units))
     if fixed_point:
@@ -77,7 +105,7 @@ def apply_drive(lif, g_units: torch.Tensor, drive: StimDrive, p: LIFParams,
         if drive.v_mv is not None:
             v_fx = f32_to_i32(torch.round(drive.v_mv
                                           / f32(p.w_scale, drive.v_mv)))
-        return lif_step_fx(lif, g_in, p, v_fx, drive.force)
+        return lif_step_fx(lif, g_in, p, v_fx, drive.force, wide=wide)
     return lif_step(lif, g_units, p, drive.v_mv, drive.force)
 
 
@@ -185,6 +213,80 @@ class Background:
         mask = (torch.ones(n, dtype=torch.bool) if self.mask is None
                 else self.mask)
         return dataclasses.replace(self, mask=mask)
+
+
+CDF_ONE = 1 << 32     # the thresholds' scale: a threefry word's range
+
+
+def poisson_count_table(lam) -> np.ndarray:
+    """``[P, K]`` int64 thresholds of the Poisson counts of means ``lam``
+    (events a step, one a population): entry k of a row is
+    ``ceil(CDF(k) * 2**32)``, the CDF summed in float64 from ``pmf(0) =
+    exp(-lam)`` and ``pmf(k) = pmf(k - 1) * lam / k``, up to the first
+    entry that reaches ``2**32`` (no word reaches it), and every row padded
+    with ``2**32`` to the longest.  A word ``u`` then counts ``#{k: u >=
+    row[k]}`` events: ``P(count <= k) = row[k] / 2**32``."""
+    rows = []
+    for mean in lam:
+        mean = float(mean)
+        if not 0.0 <= mean <= 64.0:
+            raise ValueError(f"a count's mean of {mean} events a step is "
+                             f"outside [0, 64]")
+        pmf, cdf, row = np.exp(-mean), 0.0, []
+        for k in range(1024):
+            cdf += pmf
+            thr = min(CDF_ONE, int(np.ceil(cdf * CDF_ONE)))
+            row.append(thr)
+            if thr >= CDF_ONE:
+                break
+            pmf = pmf * mean / (k + 1)
+        rows.append(row)
+    K = max(len(r) for r in rows)
+    return np.array([r + [CDF_ONE] * (K - len(r)) for r in rows], np.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class PoissonCount:
+    """Poisson count drive onto g (a population's summed external input,
+    the cortical microcircuit's background): every neuron of population p
+    receives Poisson(``lam[p]``) events a step, each ``weight`` units.
+
+    The step draws one 32-bit threefry word a neuron
+    (:func:`repro_torch.random.random_bits`) and leaves it in the drive's
+    ``counts`` channel with the thresholds of :func:`poisson_count_table`,
+    made once on the host in float64; the ``delay_event`` engine counts
+    the words where it reads them (:func:`count_events` in its plain
+    version).
+    """
+
+    pop: Any                                      # [n] int32 population ids
+    lam: tuple = ()                               # mean events a step, by pop
+    weight: float = 1.0                           # g units an event
+    table: Any = None                             # set from ``lam``
+
+    n_keys = 1
+
+    def __post_init__(self):
+        if self.table is None:
+            object.__setattr__(self, "table", torch.from_numpy(
+                poisson_count_table(self.lam)))
+
+    def init_state(self, n: int):
+        return ()
+
+    def to(self, device):
+        return dataclasses.replace(self, pop=self.pop.to(device),
+                                   table=self.table.to(device))
+
+    def step(self, state, keys, t, n, p, *, partitionable=True):
+        bits = prng.random_bits(keys[..., 0, :], (n,),
+                                partitionable=partitionable)
+        return state, StimDrive(counts=CountDraw(
+            bits=bits, pop=self.pop, table=self.table,
+            weight=float(self.weight)))
+
+    def to_masked(self, n: int):
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,7 +434,7 @@ class Compose:
                 f"Compose state has {len(state)} entries for "
                 f"{len(self.parts)} parts — carry was not built from this "
                 f"stimulus's init_state()")
-        v = g = force = None
+        v = g = force = counts = None
         new_states = []
         k0 = 0
         for s, st in zip(self.parts, state):
@@ -346,7 +448,12 @@ class Compose:
                 g = d.g_units if g is None else g + d.g_units
             if d.force is not None:
                 force = d.force if force is None else force | d.force
-        return tuple(new_states), StimDrive(v_mv=v, g_units=g, force=force)
+            if d.counts is not None:
+                if counts is not None:
+                    raise ValueError("a stimulus takes one PoissonCount part")
+                counts = d.counts
+        return tuple(new_states), StimDrive(v_mv=v, g_units=g, force=force,
+                                            counts=counts)
 
     def to_masked(self, n: int):
         return Compose(tuple(s.to_masked(n) for s in self.parts))
@@ -403,6 +510,8 @@ def shard_stimulus(stim, d):
     return map_tensors(remap, dense)
 
 
-__all__ = ["Background", "Compose", "PoissonDrive", "PulseTrain", "RampDrive",
-           "SILENT", "SkipKey", "StepCurrent", "StimDrive", "apply_drive",
-           "legacy_stimulus", "n_split", "per_neuron", "shard_stimulus"]
+__all__ = ["Background", "CDF_ONE", "Compose", "CountDraw", "PoissonCount",
+           "PoissonDrive", "PulseTrain", "RampDrive", "SILENT", "SkipKey",
+           "StepCurrent", "StimDrive", "apply_drive", "count_events",
+           "legacy_stimulus", "n_split", "per_neuron", "poisson_count_table",
+           "shard_stimulus"]

@@ -36,8 +36,10 @@ from repro_torch import obs
 from repro_torch.core.engine import (SimConfig, _resolve_probes,
                                      _resolve_stimulus, build_synapses,
                                      init_carry, resolve_device, run_steps)
+from repro_torch.core.engines import pending_depth, refuse_per_synapse_delays
 from repro_torch.core.health import run_chunked
 from repro_torch.core.neuron import LIFState
+from repro_torch.core.step import PendingState, final_state
 
 
 def _seed_tuple(seeds) -> tuple:
@@ -50,13 +52,16 @@ def _seed_tuple(seeds) -> tuple:
     return seeds
 
 
-def trial_carry(n: int, cfg: SimConfig, stimulus, seeds, device=None):
+def trial_carry(n: int, cfg: SimConfig, stimulus, seeds, device=None,
+                depth=None):
     """Trial-batched carry: what ``simulate(..., seed=s)`` starts from, one
     lane per seed, in the step's lane layout.  ``seeds`` is a trial count
-    B (seeds 0..B-1) or a sequence.  Returns ``(carry, seeds)`` with
+    B (seeds 0..B-1) or a sequence; ``depth`` the pending ring's slots of
+    an engine with per-synapse delays.  Returns ``(carry, seeds)`` with
     ``seeds`` normalized to a tuple."""
     seeds = _seed_tuple(seeds)
-    return init_carry(n, cfg, stimulus, seeds, resolve_device(device)), seeds
+    return init_carry(n, cfg, stimulus, seeds, resolve_device(device),
+                      depth), seeds
 
 
 # Compile-cache accounting with a telemetry session active, keyed as the
@@ -72,9 +77,17 @@ def _rates_hz(counts: torch.Tensor, t_steps: int, dt_ms: float
 
 
 class TrialResult(NamedTuple):
+    """A trial batch's result.  ``state`` is the final state: a
+    :class:`LIFState` (v, g, refrac, ``[B, n]`` each) for every engine of
+    the one uniform delay, whose ring of spikes is not returned; for an
+    engine with per-synapse delays (``delay_event``) a
+    :class:`~repro_torch.core.step.PendingState`, whose fourth field is the
+    pending ring as ``[B, n, D]`` int32, a view of the carry's
+    ``[D, B, n]`` ring (slot s: the input due at the steps t with
+    t % D == s), not a copy."""
     counts: torch.Tensor   # [B, n] int32 per-trial spike counts
     dropped: torch.Tensor  # [B] int32
-    state: LIFState        # leaves [B, n]
+    state: LIFState | PendingState
     records: dict          # probe records, each [B, T, ...]
     seeds: tuple           # the seeds, in batch order
 
@@ -121,7 +134,8 @@ def run_trials(
         syn = build_synapses(c, cfg, device)
     stimulus = _resolve_stimulus(cfg, n, sugar_neurons, stimulus).to(device)
     probes = _resolve_probes(cfg, probes)
-    carry, seeds = trial_carry(n, cfg, stimulus, seeds, device)
+    carry, seeds = trial_carry(n, cfg, stimulus, seeds, device,
+                               pending_depth(cfg, syn))
 
     def run_chunk(cy, s, k):
         return _run_trial_steps(syn, cy, stimulus, cfg, probes, k, n, s,
@@ -133,7 +147,8 @@ def run_trials(
         run_chunk, carry, t_steps, chunk_steps, time_axis=1,
         health=cfg.health, n=n * len(seeds), dt_ms=cfg.params.dt)
     return TrialResult(counts=carry.counts, dropped=carry.dropped,
-                       state=carry.lif, records=records, seeds=seeds)
+                       state=final_state(carry), records=records,
+                       seeds=seeds)
 
 
 class DistTrialResult(NamedTuple):
@@ -177,6 +192,7 @@ def run_dist_trials(
     :class:`repro_torch.core.distributed.DistConfig`."""
     from repro_torch.core.distributed import (_assemble, _mesh_for,
                                               run_partitioned)
+    refuse_per_synapse_delays(cfg.sim.engine, "run_dist_trials")
     mesh = _mesh_for(d, emulate, mesh, device)
     seeds = _seed_tuple(seeds)
     device = mesh.device if mesh is not None else resolve_device(device)

@@ -81,7 +81,21 @@ __device__ __forceinline__ bool step_f32(float& v, float& g, int32_t& refrac,
   return spike;
 }
 
-// g_in_units: delivered plus stimulus drive, rounded half to even.
+// x * m >> 14 with the product in 32 bits (wrapping, as the reference's
+// jnp int32 does) or, kWide, in 64 bits.
+template <bool kWide>
+__device__ __forceinline__ int32_t scale14(int32_t x, int32_t m) {
+  if (kWide)
+    return static_cast<int32_t>((static_cast<int64_t>(x) * m) >> 14);
+  return mul32(x, m) >> 14;
+}
+
+// g_in_units: delivered plus stimulus drive, rounded half to even.  kWide
+// takes the two decay products in 64 bits: the delay_event engine's
+// networks (the cortical microcircuit: one inhibitory event is -160 weight
+// units) drive |g| past 160 units, where the 32-bit g >> 2 times
+// gdecay16 = 13107 (tau_g 0.5 ms) wraps.  Below that both agree bit for bit.
+template <bool kWide = false>
 __device__ __forceinline__ bool step_fx(int32_t& v, int32_t& g,
                                         int32_t& refrac, int32_t g_in_units,
                                         bool has_vin, int32_t v_in_units,
@@ -91,8 +105,8 @@ __device__ __forceinline__ bool step_fx(int32_t& v, int32_t& g,
     g = add32(g, shl12(g_in_units));
     if (has_vin) v = add32(v, shl12(v_in_units));
     const int32_t x = add32(sub32(p.v0, v), g);
-    v = add32(v, mul32(x >> 2, p.alpha_m16) >> 14);
-    g = sub32(g, mul32(g >> 2, p.gdecay16) >> 14);
+    v = add32(v, scale14<kWide>(x >> 2, p.alpha_m16));
+    g = sub32(g, scale14<kWide>(g >> 2, p.gdecay16));
   }
   const bool spike = active && (v > p.v_th || force);
   if (spike) {

@@ -53,6 +53,7 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.core.capacity import escalate_capacity
+from repro_torch.core.engines import refuse_per_synapse_delays
 from repro_torch.core.engine import (SimConfig, SimResult, build_synapses,
                                      resolve_device)
 from repro_torch.core.health import (RECOVERABLE_KINDS, BackoffPolicy,
@@ -206,6 +207,7 @@ class SimServer:
                  rng: Optional[random.Random] = None,
                  device=None, partitionable: bool = True,
                  syn: Any = None):
+        refuse_per_synapse_delays(cfg.engine, "SimServer")
         self.c = c
         self.device = resolve_device(device)
         self.partitionable = partitionable
