@@ -209,6 +209,7 @@ SUPERVISE_REPS = 2              # one chunk and chunked, alternated
 T_SUPERVISE_TRACE = 100         # profiled in one chunk and in chunks of
 SUPERVISE_TRACE_CHUNK = 25      # this many steps
 T_SCENARIO = 200                # each of the seven scenarios
+T_FANOUT = 600                  # storm's and sweep's run before the timed step
 T_STORM_TRACE = 20
 CLI_SCALE = "full"              # the CLI's --scale: full FlyWire
 CLI_T_MS = 50.0                 # the CLI's full-size run: 500 steps
@@ -439,11 +440,34 @@ def phase_env():
 def kernel_modules():
     """The kernel modules of the port, each with SOURCES, LAUNCHES and
     reset_launches()."""
+    from repro_torch.kernels.fanout import kernel as FOK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.lif import kernel as LK
     from repro_torch.kernels.spike_prop import kernel as K
     from repro_torch.kernels.threefry import kernel as TFK
-    return K, LK, FK, TFK
+    return K, LK, FK, TFK, FOK
+
+
+def delivery_launches() -> dict:
+    """The delivery kernels' launch counts: the tile kernels' (blocked,
+    and blocked_fused on the partitioned path) and the fan-out kernels'
+    (blocked_fused on the local path)."""
+    from repro_torch.kernels.fanout import kernel as FOK
+    from repro_torch.kernels.spike_prop import kernel as K
+    return {**K.LAUNCHES, **FOK.LAUNCHES}
+
+
+def reset_delivery_launches() -> None:
+    from repro_torch.kernels.fanout import kernel as FOK
+    from repro_torch.kernels.spike_prop import kernel as K
+    K.reset_launches()
+    FOK.reset_launches()
+
+
+def local_fused(steps: int) -> dict:
+    """The delivery launches of ``steps`` local blocked_fused steps."""
+    return {"spike_deliver": 0, "fused_deliver_lif": 0,
+            "fanout_scatter": steps, "fanout_lif": steps}
 
 
 def reset_all_launches() -> None:
@@ -675,7 +699,7 @@ def run_engine(c, cfg, t_steps, stim, syn, probes, label):
                    probes=probes)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / t_steps
-    launches = {**K.LAUNCHES, **TFK.LAUNCHES}
+    launches = {**delivery_launches(), **TFK.LAUNCHES}
     print(f"{label}: {ms:.4f} ms/step over {t_steps} steps, "
           f"{int(res.counts.sum())} spikes, launches {launches}", flush=True)
     return res, ms, launches
@@ -725,9 +749,9 @@ def phase_main(c, cfg, stim):
     probes = ProbeSpec(raster=True)
     fused, ms_fused, launches = run_engine(c, cfg, T_MAIN, stim, syn, probes,
                                            "blocked_fused Q19.12")
-    check(launches["fused_deliver_lif"] == T_MAIN,
-          f"fused kernel launched {launches['fused_deliver_lif']} times in "
-          f"{T_MAIN} steps")
+    check({k: launches[k] for k in local_fused(0)} == local_fused(T_MAIN),
+          f"delivery launches {launches} in {T_MAIN} steps, expected "
+          f"{local_fused(T_MAIN)}")
     # each step splits the keys and draws the sugar drive: one threefry
     # launch apiece
     check(launches["threefry_split"] == T_MAIN
@@ -821,7 +845,8 @@ def phase_other(c, cfg, stim, syn):
     f32_cfg = dataclasses.replace(cfg, fixed_point=False)
     fused, _, launches32 = run_engine(c, f32_cfg, T_OTHER, stim, syn, probes,
                                       "blocked_fused f32")
-    check(launches32["fused_deliver_lif"] == T_OTHER, "fused f32 launches")
+    check({k: launches32[k] for k in local_fused(0)} == local_fused(T_OTHER),
+          "fused f32 launches")
     ref32, _, _ = run_engine(c, dataclasses.replace(f32_cfg, engine="csr"),
                              T_OTHER, stim, csr_syn, probes, "csr f32")
     check(same_result(fused, ref32), "blocked_fused f32 != csr f32")
@@ -1030,13 +1055,13 @@ def trial_run(c, cfg, t_steps, seeds, stim, syn, probes, label):
     from repro_torch.exp import run_trials
     from repro_torch.kernels.spike_prop import kernel as K
     torch.cuda.synchronize()
-    K.reset_launches()
+    reset_delivery_launches()
     t0 = time.perf_counter()
     res = run_trials(c, cfg, t_steps, seeds=seeds, syn=syn, stimulus=stim,
                      probes=probes)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / t_steps
-    launches = dict(K.LAUNCHES)
+    launches = delivery_launches()
     print(f"{label}: {ms:.4f} ms/step over {t_steps} steps of "
           f"{len(res.seeds)} lanes ({ms / len(res.seeds):.4f} ms per "
           f"trial-step), spikes per lane "
@@ -1050,6 +1075,107 @@ def same_trials(a, b) -> bool:
     return (torch.equal(a.counts, b.counts)
             and torch.equal(a.dropped, b.dropped)
             and all(torch.equal(x, y) for x, y in zip(a.state, b.state)))
+
+
+@phase("the fan-out kernels at the benchmark's shapes")
+def phase_fanout(c, cfg, syn, smi):
+    """blocked_fused's local step (``kernels/fanout``) at full FlyWire in
+    the benchmark cells' shapes: ``background_storm`` at 200 Hz and 20 Hz
+    forced background on 32 lanes (the spikes of the last of T_FANOUT steps
+    of ``run_trials``, its final state, the background forced on 2% of the
+    lane-neurons), and sugar's ~0.1 spikes a lane-step on 1,024 lanes (100
+    random lane-neurons, a g drive on 20 neurons).  Each case: the kernels'
+    step bitwise the plain version (``fanout_step_ref``) and the fused tile
+    kernel's step (``ops.fused_step``), the sums all zero after it; each
+    kernel's device time (profiler) against its least bytes at
+    HBM_BYTES_PER_S (the scatter: the slot's byte a lane-neuron, 6 bytes a
+    synapse event read and 4 added; the LIF pass: v, g, the countdown read
+    and written, the sum read, the spike written, the drive channels read);
+    the plain step's time by CUDA events.  No PyTorch call computes it:
+    ``library_ms`` is null."""
+    import numpy as np
+    import torch
+    from repro_torch.core.neuron import LIFState
+    from repro_torch.exp import (ProbeSpec, StimDrive, build_scenario,
+                                 run_trials)
+    from repro_torch.kernels.fanout import kernel as FOK
+    from repro_torch.kernels.fanout import ref as FOR
+    from repro_torch.kernels.spike_prop import ops
+    n, p = c.n, cfg.params
+    rng = np.random.default_rng(31)
+    deg = syn.indptr[1:] - syn.indptr[:-1]
+    cases = {}
+    for label, hz in (("storm", 200.0), ("sweep", 20.0)):
+        stim = build_scenario("background_storm", c, cfg, background_hz=hz)
+        res = run_trials(c, cfg, T_FANOUT, seeds=32, syn=syn, stimulus=stim,
+                         probes=ProbeSpec(raster=True))
+        force = torch.from_numpy(rng.random((32, n)) < 0.02).to(DEVICE)
+        cases[label] = (res.records["raster"][:, -1].contiguous(),
+                        LIFState(*res.state), StimDrive(force=force))
+        del res
+    spikes = torch.zeros((1024, n), dtype=torch.bool, device=DEVICE)
+    spikes.view(-1)[torch.from_numpy(rng.integers(0, 1024 * n, 100)).to(
+        DEVICE)] = True
+    g = torch.zeros((1024, n), dtype=torch.float32, device=DEVICE)
+    g[:, :20] = torch.from_numpy(
+        (rng.random((1024, 20)) < 0.015) * 180.0).to(DEVICE)
+    fdt = torch.int32 if cfg.fixed_point else torch.float32
+    lif = LIFState(
+        torch.full((1024, n), p.fx_v0 if cfg.fixed_point else p.v0,
+                   dtype=fdt, device=DEVICE),
+        torch.zeros((1024, n), dtype=fdt, device=DEVICE),
+        torch.zeros((1024, n), dtype=torch.int32, device=DEVICE))
+    cases["sugar"] = (spikes, lif, StimDrive(g_units=g))
+    acc = FOK.Accumulator()
+    out = {"fanout_scatter": {}, "fanout_lif": {}}
+    for label, (spk, lif, drive) in cases.items():
+        B = spk.shape[0]
+
+        def step(spk=spk, lif=lif, drive=drive):
+            return FOK.fanout_step(syn.indptr, syn.tgt, syn.w, spk, lif, drive,
+                                   p, cfg.fixed_point, acc)
+
+        def plain(spk=spk, lif=lif, drive=drive):
+            return FOR.fanout_step_ref(syn.indptr, syn.tgt, syn.w, spk, lif,
+                                       drive, p, cfg.fixed_point)
+        FOK.reset_launches()
+        got, want = step(), plain()
+        torch.cuda.synchronize()
+        check(FOK.LAUNCHES == {"fanout_scatter": 1, "fanout_lif": 1},
+              f"{label}: {FOK.LAUNCHES}")
+        tile = ops.fused_step(syn.blk_id, syn.weights,
+                              *ops.pad_spike_blocks(spk, n, syn.n_sb), lif,
+                              drive, n, p, cfg.fixed_point)
+        check(torch.equal(got[2], want[2]) and not acc.buf.any(),
+              f"{label}: syn_events differ or the sums were left")
+        check(equal_all(got[0], want[0]) and equal_all(got[0], tile[0])
+              and torch.equal(got[1], want[1])
+              and torch.equal(got[1], tile[1]),
+              f"{label}: the fan-out step != its plain version or the fused "
+              f"tile kernel's")
+        events = int(got[2].sum())
+        plain_ms = cuda_ms(plain, 2, warmup=1)
+        chans = sum(x.numel() * x.element_size() for x in drive
+                    if isinstance(x, torch.Tensor))
+        bounds = {"fanout_scatter": (B * n + 10 * events) / HBM_BYTES_PER_S,
+                  "fanout_lif": (B * n * 29 + chans) / HBM_BYTES_PER_S}
+        for name in out:
+            ms = kernel_device_ms(step, 100, name)
+            out[name][label] = {
+                "lanes": B, "spikes_per_lane": int(spk.sum()) / B,
+                "syn_events": events, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bounds[name] * 1e3, "bound_by": "bytes",
+                "library_ms": None}
+            print(f"{label}: {name} {ms:.5f} ms/launch, bound "
+                  f"{bounds[name] * 1e3:.5f} ms, plain step {plain_ms:.3f} "
+                  f"ms; {B} lanes, {int(spk.sum()) / B:.2f} spikes and "
+                  f"{events / B:.0f} synapse events a lane; bitwise the "
+                  f"plain step and the tile kernel's; card {smi}",
+                  flush=True)
+        del got, want, tile
+    del cases, acc
+    torch.cuda.empty_cache()
+    return out
 
 
 @phase("trials, B = 10, full FlyWire (Q19.12)")
@@ -1080,8 +1206,8 @@ def phase_trials(c, cfg, stim, syn, smi):
         runs[engine] = trial_run(c, run_cfg, T, TRIAL_SEEDS, stim, s, probes,
                                  f"run_trials {engine} Q19.12")
         del s
-        want = {"spike_deliver": T if engine == "blocked" else 0,
-                "fused_deliver_lif": T if engine == "blocked_fused" else 0}
+        want = {**local_fused(T if engine == "blocked_fused" else 0),
+                "spike_deliver": T if engine == "blocked" else 0}
         check(runs[engine][2] == want, f"run_trials {engine}: launches "
               f"{runs[engine][2]}, expected {want}: one a step for all "
               f"{TRIAL_SEEDS} lanes")
@@ -1098,13 +1224,13 @@ def phase_trials(c, cfg, stim, syn, smi):
     single_ms = []
     for b, seed in enumerate(fused.seeds):
         torch.cuda.synchronize()
-        K.reset_launches()
+        reset_delivery_launches()
         t0 = time.perf_counter()
         one = simulate(c, cfg, T, seed=seed, syn=syn, stimulus=stim,
                        probes=ProbeSpec())
         torch.cuda.synchronize()
         single_ms.append((time.perf_counter() - t0) * 1e3 / T)
-        check(K.LAUNCHES["fused_deliver_lif"] == T, "simulate() launches")
+        check(delivery_launches() == local_fused(T), "simulate() launches")
         check(torch.equal(one.counts, fused.counts[b])
               and torch.equal(one.dropped, fused.dropped[b])
               and all(torch.equal(x, y[b]) for x, y in zip(one.state,
@@ -1150,9 +1276,8 @@ def phase_trials(c, cfg, stim, syn, smi):
           f"blocked {runs['blocked'][1]:.4f}, CONFIG.sim (event) "
           f"{runs['event'][1]:.4f} ms/step at B = 10; all bitwise equal, "
           f"each lane to simulate(); card {smi}", flush=True)
-    launches = {"spike_deliver": runs["blocked"][2]["spike_deliver"],
-                "fused_deliver_lif": runs["blocked_fused"][2][
-                    "fused_deliver_lif"]}
+    launches = {**runs["blocked_fused"][2],
+                "spike_deliver": runs["blocked"][2]["spike_deliver"]}
     del runs
     return fused, launches
 
@@ -1299,12 +1424,12 @@ def serve_timed(server, reqs):
     from repro_torch.kernels.spike_prop import kernel as K
     events = []
     torch.cuda.synchronize()
-    K.reset_launches()
+    reset_delivery_launches()
     with obs.telemetry(events.append):
         done = server.run(reqs)
         torch.cuda.synchronize()
         stats = server.stats()
-    launches = dict(K.LAUNCHES)
+    launches = delivery_launches()
     heads = [e for e in events if e["type"] == "serve_batch"]
     spans = [e for e in events
              if e["type"] == "span" and e["name"] == "serve_batch"]
@@ -1385,9 +1510,9 @@ def phase_serving(c, cfg, syn, smi):
           f"{stats['retries']}")
     # two full batches of T steps, the crasher's first chunk, its retry
     steps = 3 * T + SERVE_CHUNK
-    check(launches == {"spike_deliver": 0, "fused_deliver_lif": steps},
-          f"served launches {launches}, expected {steps} fused: one a step "
-          f"a batch")
+    check(launches == local_fused(steps),
+          f"served launches {launches}, expected {steps} of each fan-out "
+          f"kernel: one a step a batch")
     check(stats["batches"] == 4, f"{stats['batches']} batches, expected 4")
 
     # every lane against run_trials of its signature, one request per
@@ -1448,7 +1573,7 @@ def phase_serving(c, cfg, syn, smi):
                            **params["sugar_feeding"])
     fused_trials = run_trials(c, server.cfg, To, seeds=SERVE_BATCH, syn=syn,
                               stimulus=sugar, probes=probes["sugar_feeding"])
-    check(launches_b == {"spike_deliver": To, "fused_deliver_lif": 0}
+    check(launches_b == {**local_fused(0), "spike_deliver": To}
           and len(batches_b) == 1,
           f"blocked server launches {launches_b}, expected {To} "
           f"spike_deliver in one batch; batches {batches_b}")
@@ -1553,7 +1678,8 @@ def phase_serving(c, cfg, syn, smi):
             "escalations": stats_e["escalations"],
             "escalated_capacity": dataclasses.asdict(final),
             "escalation_s": esc_s, "peak_gb": peak,
-            "launches": {"fused_deliver_lif": launches["fused_deliver_lif"],
+            "launches": {"fanout_scatter": launches["fanout_scatter"],
+                         "fanout_lif": launches["fanout_lif"],
                          "spike_deliver": launches_b["spike_deliver"]}}
 
 
@@ -3643,8 +3769,8 @@ def phase_supervision(c, cfg, stim, syn, smi):
 def phase_scenarios(c, cfg, syn, smi):
     """Each of the seven scenarios of the port's catalog (the sugar
     population from CONFIG, as the CLI takes it), T_SCENARIO steps through
-    blocked_fused and csr, bitwise equal (counts, state, dropped), the
-    fused kernel launched once a step; spikes a step and ms/step of each.
+    blocked_fused and csr, bitwise equal (counts, state, dropped), each
+    fan-out kernel launched once a step; spikes a step and ms/step of each.
     Then background_storm, the dense point: its device busy time a step
     (profiler, T_STORM_TRACE steps once the ring delivers) and both
     delivery kernels at the spikes of its last step, beside the
@@ -3668,9 +3794,10 @@ def phase_scenarios(c, cfg, syn, smi):
         probes = ProbeSpec(raster=name == "background_storm")
         fused, ms_f, launches = run_engine(c, cfg, T_SCENARIO, stim, syn,
                                            probes, f"{name} blocked_fused")
-        check(launches["fused_deliver_lif"] == T_SCENARIO,
-              f"{name}: fused kernel launched {launches} times")
-        fused_launches += launches["fused_deliver_lif"]
+        check({k: launches[k] for k in local_fused(0)}
+              == local_fused(T_SCENARIO),
+              f"{name}: delivery launches {launches}")
+        fused_launches += launches["fanout_scatter"]
         ref, ms_c, _ = run_engine(c, csr_cfg, T_SCENARIO, stim, csr_syn,
                                   probes, f"{name} csr")
         check(same_result(fused, ref), f"{name}: blocked_fused != csr")
@@ -3816,24 +3943,24 @@ def phase_cli(smi):
     launches = {}
     ck = ["--chunk-steps", str(CLI_CHUNK), "--checkpoint-dir",
           os.path.join(work, "ck_async")]
-    K.reset_launches()
+    reset_delivery_launches()
     got, _ = in_process(fused + ck + ["--inject-fail-at-chunk", "2"],
                         async_checkpoint=True)
     check(set(got) == {"kill"}, "the killed in-process run printed a result")
     got, _ = in_process(fused + ck + ["--resume"], async_checkpoint=True)
-    launches["fused_deliver_lif"] = K.LAUNCHES["fused_deliver_lif"]
+    launches.update({k: delivery_launches()[k]
+                     for k in ("fanout_scatter", "fanout_lif")})
     check(got == whole, "background-checkpoint resume digest differs")
-    check(dict(K.LAUNCHES) == {"fused_deliver_lif": steps,
-                               "spike_deliver": 0},
-          f"kill and resume launches {K.LAUNCHES}, expected {steps} fused")
-    K.reset_launches()
+    check(delivery_launches() == local_fused(steps),
+          f"kill and resume launches {delivery_launches()}, expected "
+          f"{steps} of each fan-out kernel")
+    reset_delivery_launches()
     got, _ = in_process(full + ["--engine", "blocked", "--chunk-steps",
                                 str(steps)])
     launches["spike_deliver"] = K.LAUNCHES["spike_deliver"]
     check(got == whole, "blocked digest != blocked_fused digest")
-    check(dict(K.LAUNCHES) == {"fused_deliver_lif": 0,
-                               "spike_deliver": steps},
-          f"blocked CLI launches {K.LAUNCHES}")
+    check(delivery_launches() == {**local_fused(0), "spike_deliver": steps},
+          f"blocked CLI launches {delivery_launches()}")
 
     dist = ["--scale", CLI_SCALE, "--fixed-point", "--distributed",
             "--emulate", "--cores", str(P_DIST), "--dist-scheme", "blocked",
@@ -4914,16 +5041,20 @@ def flywire_section(smi):
         c, cfg, syn, smi)
     yard, activity = phase_yardstick(c, cfg, syn, fused, smi)
     activity += storm_rows
-    launches = {"spike_deliver": other_launches["spike_deliver"],
-                "fused_deliver_lif": main_launches["fused_deliver_lif"],
-                "threefry_split": main_launches["threefry_split"],
-                "threefry_bernoulli": main_launches["threefry_bernoulli"]}
+    launches = {name: main_launches[name] for name in (
+        "fanout_scatter", "fanout_lif", "threefry_split",
+        "threefry_bernoulli")}
+    launches["spike_deliver"] = other_launches["spike_deliver"]
     del fused
     trials, trial_launches = phase_trials(c, cfg, stim, syn, smi)
     lanes = phase_trials_yardstick(c, cfg, syn, trials, smi)
     for name, cases in lanes.items():
         lanes[name] = {"launches": trial_launches[name], "cases": cases}
     del trials
+    fanout = phase_fanout(c, cfg, syn, smi)
+    for name in fanout:
+        fanout[name] = {"trials_b10_launches": trial_launches[name],
+                        "cases": fanout[name]}
     serving = phase_serving(c, cfg, syn, smi)
     del syn
     gc.collect()
@@ -4953,7 +5084,8 @@ def flywire_section(smi):
              "background_storm_busy_ms_per_step": storm_busy,
              "scenario_launches": scenario_launches, "serving": serving,
              "resilient_p12": resilient, "exact_engines": exact,
-             "multiprocess_p12": multiprocess, "flywire_dryrun": dryrun}
+             "multiprocess_p12": multiprocess, "flywire_dryrun": dryrun,
+             "fanout": fanout}
     return (yard, activity, launches, sharded, sharded_launches, lanes,
             dist_trials_out, extra)
 
@@ -4999,7 +5131,10 @@ def main() -> int:
     flash_qwen, flash_cases = phase_flash_yardstick(smi)
     yard["flash_attention"] = (*flash_qwen, 0.0)
 
-    K, LK, FK, TFK = kernel_modules()
+    K, LK, FK, TFK, FOK = kernel_modules()
+    # the fused tile kernel runs on the partitioned path alone: the local
+    # path's blocked_fused step is the fan-out kernels' (below)
+    launches["fused_deliver_lif"] = sharded_launches["fused_deliver_lif"]
     rel = lambda p: os.path.relpath(p, here)  # noqa: E731
     sources = {**K.SOURCES, **LK.SOURCES, **FK.SOURCES}
     replaces = {
@@ -5037,22 +5172,18 @@ def main() -> int:
             # a step for all lanes, and the B = 10 yardstick cases
             kernels[-1]["trials_b10"] = lanes[name]
         if name in cli_launches:
-            # the CLI's in-process runs (counted from 0 before them) and
-            # the seven scenarios (the fused kernel)
+            # the CLI's in-process runs (counted from 0 before them)
             kernels[-1]["cli_launches"] = cli_launches[name]
-            if name == "fused_deliver_lif":
-                kernels[-1]["cli_p12_launches"] = cli_launches[
-                    "fused_deliver_lif_p12"]
-                kernels[-1]["scenario_launches"] = extra["scenario_launches"]
         if name in extra["serving"]["launches"]:
-            # the simulation server's batches (the fused kernel) and the
-            # blocked server's (spike_deliver), counted from 0 before
-            # each; the fused kernel also under run_resilient at P = 12
+            # the blocked server's batches, counted from 0 before them
             kernels[-1]["serving_launches"] = extra["serving"]["launches"][
                 name]
-            if name == "fused_deliver_lif":
-                kernels[-1]["resilient_p12_launches"] = extra[
-                    "resilient_p12"]["launches"]
+        if name == "fused_deliver_lif":
+            # the CLI's P = 12 runs and run_resilient at P = 12
+            kernels[-1]["cli_p12_launches"] = cli_launches[
+                "fused_deliver_lif_p12"]
+            kernels[-1]["resilient_p12_launches"] = extra[
+                "resilient_p12"]["launches"]
         if name in extra["multiprocess_p12"]["launches"]:
             # the 12-rank run (one process a partition, gloo), summed
             # over the ranks, counted from 0 before each run
@@ -5084,6 +5215,22 @@ def main() -> int:
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": "operations", "library_ms": lib_ms,
                     "max_abs_err": err}
+    # blocked_fused's local step: the fan-out kernels replace the fused
+    # tile kernel there; the main path's, the trials', the CLI's, the
+    # scenarios' and the server's launches, and every case of phase_fanout
+    for name in ("fanout_scatter", "fanout_lif"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": rel(FOK.SOURCE),
+            "replaces": replaces["fused_deliver_lif"] + " (the local path)",
+            "launches": launches[name], "max_abs_err": 0.0,
+            **extra["fanout"][name]["cases"]["storm"],
+            "trials_b10_launches": extra["fanout"][name][
+                "trials_b10_launches"],
+            "cli_launches": cli_launches[name],
+            "scenario_launches": extra["scenario_launches"],
+            "serving_launches": extra["serving"]["launches"][name],
+            "held_against_plain": True,
+            "cases": extra["fanout"][name]["cases"]})
     # kernel #6 stands in for no TPU kernel: it replaces the int64 chain
     # that computed jax.random's threefry; one entry a wrapper the step
     # loop launches, with the main path's launches (T_MAIN steps of
@@ -5119,15 +5266,20 @@ def main() -> int:
     check(all(k["launches"] > 0 for k in kernels)
           and all(k["sharded_p12"]["launches"] > 0
                   and k["sharded_p12"]["trials_b3_launches"] > 0
-                  and k["trials_b10"]["launches"] > 0
-                  for k in kernels if "sharded_p12" in k),
-          "a kernel never launched")
+                  for k in kernels if "sharded_p12" in k)
+          and all((k["trials_b10"]["launches"] > 0)
+                  == (k["name"] == "spike_deliver")
+                  for k in kernels if "trials_b10" in k)
+          and all(k["trials_b10_launches"] > 0 and k["scenario_launches"] > 0
+                  for k in kernels if k["name"].startswith("fanout")),
+          "a kernel never launched, or the fused tile kernel on the local "
+          "path")
     check(all(k["cli_launches"] > 0 for k in kernels if "cli_launches" in k)
-          and len([k for k in kernels if "cli_launches" in k]) == 2,
+          and len([k for k in kernels if "cli_launches" in k]) == 3,
           "a delivery kernel never launched on the CLI path")
     check(all(k["serving_launches"] > 0 for k in kernels
               if "serving_launches" in k)
-          and len([k for k in kernels if "serving_launches" in k]) == 2,
+          and len([k for k in kernels if "serving_launches" in k]) == 3,
           "a delivery kernel never launched on the serving path")
     check(all(k["multiprocess_p12_launches"] > 0 for k in kernels
               if "multiprocess_p12_launches" in k)

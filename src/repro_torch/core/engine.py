@@ -133,8 +133,9 @@ def init_carry(n: int, cfg: SimConfig, stimulus, seed, device,
     ring ``[D, B, n]``, keys ``[B, 2]``), lane b starting as a single run
     from ``seed[b]`` would.  ``depth`` (an engine with per-synapse delays:
     :func:`~repro_torch.core.engines.pending_depth`) gives the carry a
-    zero pending ring of that many slots, and the engine's counters, in
-    place of the ring of spikes."""
+    zero pending ring of that many slots in place of the ring of spikes.
+    An engine with counters of its own (``init_stats``: ``delay_event``,
+    ``blocked_fused``) adds them to the carry's ``stats``."""
     if isinstance(seed, (int, np.integer)):
         return single_lane(init_carry(n, cfg, stimulus, [int(seed)], device,
                                       depth))
@@ -144,6 +145,9 @@ def init_carry(n: int, cfg: SimConfig, stimulus, seed, device,
     def lanes(x):
         return x.expand((B,) + x.shape).clone()
     stats = health_stats_init(cfg, B, device)
+    engine = get_engine(cfg.engine)
+    if hasattr(engine, "init_stats"):
+        stats.update(engine.init_stats(B, device))
     ring = pending = None
     if depth is None:
         ring = torch.zeros((cfg.params.delay_steps, B, n), dtype=torch.bool,
@@ -151,7 +155,6 @@ def init_carry(n: int, cfg: SimConfig, stimulus, seed, device,
     else:
         pending = torch.zeros((depth, B, n), dtype=torch.int32,
                               device=device)
-        stats.update(get_engine(cfg.engine).init_stats(B, device))
     return SimCarry(
         lif=LIFState(*(lanes(x) for x in init_state(
             n, cfg.params, cfg.fixed_point, device=device))),

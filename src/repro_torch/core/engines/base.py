@@ -24,15 +24,20 @@ class DeliveryEngine(Protocol):
     An engine that sets ``integrates_lif = True`` fuses the LIF update into
     delivery and provides ``deliver_fused(state, spikes, lif, drive, cfg)
     -> (new_lif, spikes [n] bool, dropped)``; the step body then calls it
-    instead of ``deliver`` + the separate LIF update.
+    instead of ``deliver`` + the separate LIF update.  With counters of its
+    own it also provides ``step_stats(state, lanes, device)``, the last
+    ``deliver_fused``'s.
 
     An engine that sets ``per_synapse_delays = True`` (``delay_event``)
     delivers at each synapse's own delay: its state has a ``depth``, the
     carry holds a ring of pending input of that many slots in place of
     the ring of spikes, and the step body calls ``deliver_pending(state,
-    pending, ptr, lif, drive, cfg) -> (new_lif, spikes, dropped, stats)``;
-    ``init_stats(lanes, device)`` gives the counters it adds to the
-    carry's.  Only the P = 1 ``local`` path runs it.
+    pending, ptr, lif, drive, cfg) -> (new_lif, spikes, dropped, stats)``.
+    Only the P = 1 ``local`` path runs it.
+
+    ``init_stats(lanes, device)``, where an engine has it, gives the
+    counters it adds to the carry's (``[lanes]`` int64 each) on the
+    ``local`` path.
     """
 
     name: str

@@ -3,7 +3,10 @@
 Every neuron lives on one partition, so the exchange sends the delayed
 spikes to itself and delivery is whatever the registered delivery engine
 does.  It is the one scheme that runs an engine with per-synapse delays
-(``deliver_pending``: the engine's step on the carry's pending ring).
+(``deliver_pending``: the engine's step on the carry's pending ring).  An
+engine's counters (its ``init_stats``, which the carry starts from) pass
+through: ``deliver_pending`` returns them, and after ``deliver_fused`` the
+engine's ``step_stats`` hands over the step's.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ class LocalExchange:
     def deliver_fused(self, state, payload, delayed, lif, drive, sim, cap,
                       topo: Topology):
         from ..engines import get_engine
-        new_lif, spikes, drop = get_engine(sim.engine).deliver_fused(
-            state, payload[0], lif, drive, sim)
-        return new_lif, spikes, drop, {}
+        engine = get_engine(sim.engine)
+        new_lif, spikes, drop = engine.deliver_fused(state, payload[0], lif,
+                                                     drive, sim)
+        take = getattr(engine, "step_stats", None)
+        stats = ({} if take is None
+                 else take(state, spikes.shape[0], spikes.device))
+        return new_lif, spikes, drop, stats

@@ -235,6 +235,12 @@ def fused_step(blk_id, weights, spk_pad, nspk, lif: LIFState, drive, n: int,
     (a trial batch's ``[B, n]``: one launch for the B lanes), with the
     spike blocks and counts of :func:`pad_spike_blocks` for the same lanes.
 
+    The partitioned path's step (``core/exchange/blocked.py``, a sharded
+    store over global source ids) runs it; the local path's
+    ``blocked_fused`` step delivers per synapse instead
+    (:func:`repro_torch.kernels.fanout.fanout_step`, no pads), and tests
+    hold the two against each other.
+
     Pads the state and the drive channels to [..., n_tb, TGT_BLK] row
     blocks, calls :func:`fused_deliver_lif` and unpads.  ``None`` channels
     stay ``None``.  The fixed-point ``v_mv`` -> weight-unit conversion

@@ -18,7 +18,7 @@ The phases of a step (:data:`PHASES`): ``entry`` (the chunk's start: the
 ring's copy, the voltage rows), ``keys`` (the key split), ``exchange``
 (the delayed read, the scheme's exchange, the collective), ``stimulus``
 (the stimulus draws), ``deliver`` (delivery and the LIF update, the
-fused engines' pads included), ``finish`` (pad mask, ring write,
+partitioned fused path's pads included), ``finish`` (pad mask, ring write,
 counters, health sentinels, scheme stats) and ``probes`` (the probe
 records, and their stacking after the chunk's last step).
 

@@ -18,6 +18,7 @@ from repro_torch.core.neuron import FLT_MIN, LIFState
 from repro_torch.core.neuron import FLYWIRE_LIF as P
 from repro_torch.exp import ProbeSpec, build_scenario
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.fanout import kernel as FOK
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.lif import kernel as LK
 from repro_torch.kernels.lif import lif_update
@@ -95,8 +96,9 @@ def test_kernels_match_plain(cuda, activity, quantized):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fx", [False, True], ids=["f32", "q19_12"])
 def test_simulate_engines_agree_on_the_card(cuda, fx):
-    """blocked and blocked_fused through their kernels, bitwise equal to
-    csr on the card and to the CPU run, with every launch counted."""
+    """blocked and blocked_fused through their kernels (blocked_fused's
+    local path: the fan-out scatter and LIF kernels), bitwise equal to csr
+    on the card and to the CPU run, with every launch counted."""
     c = synthetic_flywire(n=1500, target_synapses=45_000, seed=3)
     kw = dict(fixed_point=True, quantize_bits=9, poisson_to_v=False) \
         if fx else {}
@@ -106,6 +108,7 @@ def test_simulate_engines_agree_on_the_card(cuda, fx):
         cfg = SimConfig(engine=engine, **kw)
         stim = build_scenario("sugar_feeding", c, cfg)
         K.reset_launches()
+        FOK.reset_launches()
         out[engine] = simulate(c, cfg, 300, seed=7, stimulus=stim,
                                probes=probes)
         torch.cuda.synchronize()
@@ -114,7 +117,8 @@ def test_simulate_engines_agree_on_the_card(cuda, fx):
                                   "fused_deliver_lif": 0}
         if engine == "blocked_fused":
             assert K.LAUNCHES == {"spike_deliver": 0,
-                                  "fused_deliver_lif": 300}
+                                  "fused_deliver_lif": 0}
+            assert FOK.LAUNCHES == {"fanout_scatter": 300, "fanout_lif": 300}
     cpu = simulate(c, SimConfig(engine="csr", **kw), 300, seed=7,
                    stimulus=build_scenario("sugar_feeding", c, SimConfig(
                        **kw)), probes=probes, device="cpu")
@@ -555,7 +559,8 @@ def test_delivery_kernels_keep_nine_blocks_an_sm(cuda):
 def test_run_trials_on_the_card(cuda):
     """run_trials at B = 3 through csr, event, blocked and blocked_fused,
     bitwise equal to each other and to the CPU run, each delivery kernel
-    launched once a step for all three lanes."""
+    (blocked_fused's: the fan-out scatter and LIF kernels) launched once a
+    step for all three lanes."""
     from repro_torch.exp import run_trials
     c = synthetic_flywire(n=1500, target_synapses=45_000, seed=3)
     kw = dict(fixed_point=True, quantize_bits=9, poisson_to_v=False)
@@ -565,6 +570,7 @@ def test_run_trials_on_the_card(cuda):
     def run(engine, dev):
         cfg = SimConfig(engine=engine, **kw)
         K.reset_launches()
+        FOK.reset_launches()
         return run_trials(c, cfg, T, seeds=seeds, probes=probes, device=dev,
                           stimulus=build_scenario("sugar_feeding", c, cfg,
                                                   background_hz=20.0))
@@ -575,7 +581,9 @@ def test_run_trials_on_the_card(cuda):
         torch.cuda.synchronize()
         assert K.LAUNCHES == {
             "spike_deliver": T if engine == "blocked" else 0,
-            "fused_deliver_lif": T if engine == "blocked_fused" else 0}
+            "fused_deliver_lif": 0}
+        assert FOK.LAUNCHES == dict.fromkeys(
+            FOK.SOURCES, T if engine == "blocked_fused" else 0)
         assert torch.equal(r.counts.cpu(), cpu.counts), engine
         assert torch.equal(r.dropped.cpu(), cpu.dropped), engine
         assert all(torch.equal(x.cpu(), y) for x, y in zip(r.state,
@@ -660,8 +668,8 @@ def test_fused_kernel_fractional_gstim(cuda, fx):
 def test_chunked_resumed_opto_ramp_on_the_card(cuda, tmp_path):
     """opto_ramp in Q19.12 through blocked_fused on the card, in chunks
     of 70 steps, killed after two and resumed (background checkpoint
-    writes), bitwise equal to its unchunked run and to csr; one fused
-    kernel launch a step."""
+    writes), bitwise equal to its unchunked run and to csr; one launch of
+    each fan-out kernel a step."""
     c = synthetic_flywire(n=3000, target_synapses=90_000, seed=3)
     kw = dict(fixed_point=True, quantize_bits=9, poisson_to_v=False)
     T = 300
@@ -675,10 +683,10 @@ def test_chunked_resumed_opto_ramp_on_the_card(cuda, tmp_path):
                                                 t_off_ms=27.0), **extra)
     want = run("csr")
     assert int(want.counts.sum()) > 0
-    K.reset_launches()
+    FOK.reset_launches()
     whole = run("blocked_fused")
     torch.cuda.synchronize()
-    assert K.LAUNCHES["fused_deliver_lif"] == T
+    assert FOK.LAUNCHES == {"fanout_scatter": T, "fanout_lif": T}
     ck = dict(chunk_steps=70, checkpoint_dir=str(tmp_path / "ck"),
               async_checkpoint=True)
     run("blocked_fused", 140, **ck)
@@ -693,9 +701,9 @@ def test_chunked_resumed_opto_ramp_on_the_card(cuda, tmp_path):
 @pytest.mark.cuda
 def test_sim_server_packed_equals_solo_on_the_card(cuda):
     """A SimServer on blocked_fused (Q19.12) packs four same-signature
-    requests into one batch: one fused kernel launch a step for the four
-    lanes, and each request bitwise its solo simulate() on the card and
-    the CPU server's result; a crash-once request is retried and
+    requests into one batch: one launch of each fan-out kernel a step for
+    the four lanes, and each request bitwise its solo simulate() on the
+    card and the CPU server's result; a crash-once request is retried and
     completes."""
     from repro_torch.core.exchange import ExchangeFault
     from repro_torch.core.health import BackoffPolicy
@@ -724,6 +732,7 @@ def test_sim_server_packed_equals_solo_on_the_card(cuda):
         return reqs
 
     K.reset_launches()
+    FOK.reset_launches()
     srv = SimServer(c, cfg, serve, sleep=lambda s: None, device=cuda)
     reqs = srv.run(workload())
     torch.cuda.synchronize()
@@ -731,7 +740,8 @@ def test_sim_server_packed_equals_solo_on_the_card(cuda):
     assert reqs[4].attempts == 1
     # 4 lanes in one batch (T launches), the crasher: 25 steps before its
     # hook fired at the second chunk, then T on its retry
-    assert K.LAUNCHES == {"spike_deliver": 0, "fused_deliver_lif": 2 * T + 25}
+    assert K.LAUNCHES == {"spike_deliver": 0, "fused_deliver_lif": 0}
+    assert FOK.LAUNCHES == dict.fromkeys(FOK.SOURCES, 2 * T + 25)
     cpu = SimServer(c, cfg, serve, sleep=lambda s: None, device="cpu").run(
         workload())
     stim = build_scenario("sugar_feeding", c, srv.cfg, background_hz=20.0)

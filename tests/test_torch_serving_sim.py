@@ -217,8 +217,11 @@ def _assert_servers_equal(ref, port):
     for a, b in zip(rr, pr):
         assert (a.result is None) == (b.result is None)
         if a.result is not None:
-            _assert_same_fields(_result_fields(a.result),
-                                _result_fields(b.result))
+            # blocked_fused's syn_events has no counterpart in the
+            # reference (the solo runs hold it: _assert_solo)
+            got = {k: v for k, v in _result_fields(b.result).items()
+                   if k != "stat_syn_events"}
+            _assert_same_fields(_result_fields(a.result), got)
 
 
 def _assert_solo(pc, srv, reqs, cfg=None):

@@ -167,7 +167,8 @@ def test_run_trials_starved_event_capacity(net):
 
 @pytest.mark.parametrize("engine", ["event", "blocked_fused"])
 def test_run_trials_equals_simulate_per_seed(net, engine):
-    """Lane b of the port's batch is the port's own simulate(seed=s_b)."""
+    """Lane b of the port's batch is the port's own simulate(seed=s_b) (a
+    trial batch returns no stats: the lane's fields without them)."""
     _, pc = net
     cfg = SimConfig(engine=engine, **CONFIGS["q19_12"])
     stim = build_scenario("sugar_feeding", pc, cfg, background_hz=20.0)
@@ -181,7 +182,9 @@ def test_run_trials_equals_simulate_per_seed(net, engine):
                 "v": res.state.v[b], "g": res.state.g[b],
                 "refrac": res.state.refrac[b],
                 **{f"rec_{k}": v[b] for k, v in res.records.items()}}
-        _assert_bitwise(_result(one), {k: _np(v) for k, v in lane.items()})
+        want = {k: v for k, v in _result(one).items()
+                if not k.startswith("stat_")}
+        _assert_bitwise(want, {k: _np(v) for k, v in lane.items()})
 
 
 def test_trial_carry_matches_reference(net):
